@@ -1,0 +1,69 @@
+"""Plain PyTorch versions of the HAP kernels (port of ``repro/kernels/ref.py``).
+
+They are the oracles the CUDA kernels are held against on the card, and
+the path the kernel wrappers take for CPU tensors. Each follows the JAX
+oracle's operation order, so on integer-valued inputs a kernel that
+rounds the same way is bit-identical to its plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def row_top2(v: torch.Tensor):
+    """Per-row (max, argmax, second-max) over the last dimension.
+
+    Ties: argmax is the first occurrence (``torch.argmax`` documents
+    this); with a duplicated maximum the second max equals the max, since
+    only the argmax position is masked out.
+    """
+    m1 = v.amax(dim=-1)
+    i1 = v.argmax(dim=-1)
+    masked = v.scatter(-1, i1.unsqueeze(-1), float("-inf"))
+    m2 = masked.amax(dim=-1)
+    return m1, i1.to(torch.int32), m2
+
+
+def responsibility(s: torch.Tensor, a: torch.Tensor, tau: torch.Tensor,
+                   r_old: torch.Tensor, lam: float) -> torch.Tensor:
+    """Damped Eq 2.1: lam*r_old + (1-lam)*(s + min(tau, -max_{k!=j}(a+s)))."""
+    sf = s.float()
+    v = a.float() + sf
+    m1, i1, m2 = row_top2(v)
+    j = torch.arange(s.shape[-1], device=s.device)
+    row_max = torch.where(j == i1.unsqueeze(-1), m2.unsqueeze(-1),
+                          m1.unsqueeze(-1))
+    new = sf + torch.minimum(tau.float().unsqueeze(-1), -row_max)
+    return (lam * r_old.float() + (1.0 - lam) * new).to(s.dtype)
+
+
+def _eye(n: int, device) -> torch.Tensor:
+    return torch.eye(n, dtype=torch.bool, device=device)
+
+
+def col_stats(r: torch.Tensor):
+    """(col_sum, diag): col_sum[j] = sum_{k != j} max(0, r_kj); diag[j]=r_jj."""
+    rf = r.float()
+    rp = torch.where(_eye(r.shape[-1], r.device), 0.0, rf.clamp_min(0.0))
+    return rp.sum(dim=-2), rf.diagonal(dim1=-2, dim2=-1)
+
+
+def availability(r: torch.Tensor, c: torch.Tensor, phi: torch.Tensor,
+                 a_old: torch.Tensor, lam: float) -> torch.Tensor:
+    """Damped Eq 2.2/2.3 from clamped column sums."""
+    eye = _eye(r.shape[-1], r.device)
+    col, rdiag = col_stats(r)
+    rp = torch.where(eye, 0.0, r.float().clamp_min(0.0))
+    base = (c.float() + phi.float()).unsqueeze(-2)
+    a_off = (base + rdiag.unsqueeze(-2) + col.unsqueeze(-2) - rp).clamp_max(0.0)
+    a_diag = base + col.unsqueeze(-2)
+    new = torch.where(eye, a_diag, a_off)
+    return (lam * a_old.float() + (1.0 - lam) * new).to(r.dtype)
+
+
+def neg_sqeuclidean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """s_ij = -max(0, ||x_i||^2 + ||y_j||^2 - 2<x_i, y_j>) (f32 accumulation)."""
+    xf, yf = x.float(), y.float()
+    xx = (xf * xf).sum(dim=-1).unsqueeze(-1)
+    yy = (yf * yf).sum(dim=-1).unsqueeze(-2)
+    return (-(xx + yy - 2.0 * (xf @ yf.T)).clamp_min(0.0)).to(x.dtype)
