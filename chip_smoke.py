@@ -16,16 +16,33 @@ kernels   each kernel against its plain PyTorch version on the card, at the
           bit against the plain version summed in the kernel's order, and
           on inputs where both branches of Eq 2.2 occur off the diagonal;
           kernel, plain and bound times
+topk      the fused top-k build (``topk_build``) against its plain versions
+          on the card: the N = 200,000 blobs of ``bench_scaling.py`` (d =
+          2, k = 64) bit for bit against ``in_kernel_order`` and within
+          ``topk_build.compare_with_plain`` of ``plain``; the Mandrill
+          pixels at 512 x 512 (N = 262,144, d = 3, k = 64) bit for bit
+          against ``plain``; a ragged N = 4,099, d = 64, k = 129 case and
+          N = 130, k = 129 (= N - 1), also bit for bit against the
+          reference scan on the card; kernel, plain and bound times
 solve     ``solve(x, backend="dense_fused")`` on the paper's Mandrill image
           at full resolution (103 x 103 pixels -> N = 10,609, d = 3; 3
           levels, 50 sweeps), fixed and converged stopping, held against
           the plain PyTorch path (``dense_parallel``) on the same card; the
           kernels' launch counts over the main-path call; auto-select on
-          CUDA
-launches  the launch counts of the main-path call
-profile   only with ``--profile``: a ``torch.profiler`` trace of a 10-sweep
-          ``dense_fused`` solve, device time by kernel and the device's
-          idle share
+          CUDA: the 10,609 pixels (N >= 8,192) route to ``dense_topk``,
+          their first 8,000 to ``dense_fused``
+solve_topk the default ``solve(x)`` on the 200,000 blobs: auto-select
+          routes it to ``dense_topk`` with the fused build (k = 64, 3
+          levels, 50 sweeps, sampled median preference); against
+          ``build="reference"`` (the reference scan) under fixed stopping,
+          identical edge sets, exemplars, counts and trace; converged
+          stopping; wall time of the second call, peak memory, launch
+          counts; where the time goes (build, sampled preference, sweeps)
+launches  the launch counts of each path's main call (``dense_fused``
+          and ``dense_topk``), each read around that call alone
+profile   only with ``--profile``: ``torch.profiler`` traces of a 10-sweep
+          ``dense_fused`` solve and a 10-sweep ``dense_topk`` solve,
+          device time by kernel and the device's idle share
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels line ``{"kernels": [...]}``, and last ``{"ok": true, "device":
@@ -50,6 +67,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 N_MAIN = 10_609          # 103 x 103 pixels
 N_RAGGED, D_RAGGED = 4_099, 64
+N_BLOBS = 200_000        # benchmarks/bench_scaling.py's largest row
+K_TOPK = 64              # SolveConfig().k resolves to it (DEFAULT_K)
 LAM = 0.7                # SolveConfig().damping
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_OPS_PER_S = 67e12       # H100 SXM FP32 outside the tensor cores
@@ -326,7 +345,7 @@ def run_solve(x) -> dict:
             if backend == "dense_fused":
                 sweeps = r.levels * r.n_sweeps
                 check(counts == {"similarity": 1, "responsibility": sweeps,
-                                 "availability": sweeps},
+                                 "availability": sweeps, "topk_build": 0},
                       f"dense_fused {stop}: launches {counts}, expected "
                       f"similarity 1 and {sweeps} per update")
                 if stop == "fixed":
@@ -350,25 +369,210 @@ def run_solve(x) -> dict:
               and f.n_sweeps == p.n_sweeps and f.converged == p.converged,
               f"{stop}: traces differ")
 
-    auto = solve(x[:8000], device=DEVICE)
-    emit({"phase": "solve", "auto_select_n": 8000, "backend": auto.backend})
-    check(auto.backend == "dense_fused",
-          f"auto-select on CUDA chose {auto.backend}")
+    for n_auto, want in ((n, "dense_topk"), (8000, "dense_fused")):
+        auto = solve(x[:n_auto], device=DEVICE)
+        emit({"phase": "solve", "auto_select_n": n_auto,
+              "backend": auto.backend})
+        check(auto.backend == want,
+              f"auto-select on CUDA chose {auto.backend} at N = {n_auto}, "
+              f"expected {want}")
     return launches
 
 
-def run_profile(pixels) -> None:
+# --------------------------------------------------------------- top-k
+def timed(fn):
+    """``fn()`` once, and its device time in ms (CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def run_topk_kernel(blobs, pixels) -> dict:
+    """The fused top-k build against its plain versions; returns the
+    summary of the main case (the blobs)."""
+    from repro_torch.kernels import topk_build
+    from repro_torch.kernels.topk_similarity import topk_similarity
+
+    g = np.random.default_rng(1)
+    small = g.integers(0, 3, (130, 3)).astype(np.float32)
+    small[40:60] = small[0:20]                       # duplicate points
+    cases = [
+        ("blobs", blobs, K_TOPK, "in_kernel_order"),
+        ("pixels_512", pixels, K_TOPK, "plain"),
+        ("ragged", g.standard_normal((N_RAGGED, D_RAGGED)).astype(
+            np.float32), 129, "in_kernel_order"),
+        ("n130", small, 129, "plain"),
+    ]
+    summary = {"max_abs_err": 0.0}
+    for name, pts, k, exact in cases:
+        x = torch.from_numpy(pts).to(DEVICE)
+        n, d = x.shape
+        (vals, idx), k_ms = timed(lambda: topk_build.topk_similarity_fused(
+            x, k))
+        again = topk_build.topk_similarity_fused(x, k)
+        check(torch.equal(vals, again[0]) and torch.equal(idx, again[1]),
+              f"topk_build {name}: re-run differs")
+        (pv, pi), p_ms = timed(lambda: topk_build.plain(x, k))
+        cmp = topk_build.compare_with_plain(x, k, vals, idx)
+        want = (pv, pi) if exact == "plain" else \
+            topk_build.in_kernel_order(x, k)
+        check(torch.equal(vals, want[0]) and torch.equal(idx, want[1]),
+              f"topk_build {name}: not bit-identical to {exact}")
+        line = {"phase": "topk", "kernel": "topk_build", "case": name,
+                "n": n, "d": d, "k": k, "bit_identical_to": [exact],
+                **cmp}
+        if n <= N_RAGGED:
+            ref = topk_similarity(x, k)
+            check(torch.equal(vals, ref[0]) and torch.equal(idx, ref[1]),
+                  f"topk_build {name}: differs from the reference scan")
+            line["bit_identical_to"].append("reference scan")
+        if exact == "plain":
+            check(cmp["bit_identical"],
+                  f"topk_build {name}: not bit-identical to plain")
+            line["tolerance"] = "0 (bit-identical to plain)"
+        else:
+            check(cmp["values_within_tolerance"]
+                  and cmp["idx_equal_off_ties"],
+                  f"topk_build {name}: beyond tolerance of plain: {cmp}")
+            tol = topk_build.tolerance(x, idx)
+            line["tolerance"] = (
+                "topk_build.compare_with_plain (largest "
+                f"{float(tol.max()):.3g}; median tolerance / median |value| "
+                f"{sampled_median(tol) / sampled_median(vals.abs()):.3g})")
+        nbytes = 4 * n * d + 8 * n * k            # points in, (n, k) out
+        # per pair: d products and d sums of the dot, xx + yy, 2 acc, the
+        # subtraction, the max and the gate's compare; per point: its norm
+        b_ms, b_by = bound_ms(nbytes, float(n) * n * (2 * d + 5)
+                              + 2.0 * n * d)
+        line.update(kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None,
+                    library="none: no one PyTorch call builds a top-k "
+                    "similarity list without the (N, N) matrix")
+        summary["max_abs_err"] = max(summary["max_abs_err"],
+                                     cmp["max_abs_err"])
+        if name == "blobs":
+            k_ms = cuda_ms(lambda: topk_build.topk_similarity_fused(x, k),
+                           iters=3, warmup=0)
+            line["kernel_ms"] = k_ms
+            summary.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=None)
+        emit(line)
+        del x, vals, idx, pv, pi, want, again
+    return summary
+
+
+def run_solve_topk(blobs) -> dict:
+    """The default solve on the 200,000 blobs; returns its launch counts."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solver import SolveConfig, solve
+    from repro_torch.solver.topk_build import resolve_build_backend
+
+    n = blobs.shape[0]
+    build = resolve_build_backend("auto", n=n, k=K_TOPK, platform="cuda")
+    check(build == "fused", f"build resolves to {build} on CUDA")
+    first = solve(blobs, device=DEVICE, keep_state=True)       # warm-up
+    check(first.backend == "dense_topk",
+          f"auto-select on {n} points chose {first.backend}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve(blobs, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    emit({"phase": "solve_topk", "backend": res.backend, "build": build,
+          "stop": "fixed", "n": n, "k": K_TOPK, "levels": res.levels,
+          "wall_s": wall, "n_sweeps": res.n_sweeps,
+          "n_clusters": res.n_clusters.tolist(),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": launches})
+    check(launches == {"similarity": 0, "responsibility": 0,
+                       "availability": 0, "topk_build": 1},
+          f"dense_topk launches {launches}")
+    check(res.exemplars.shape == (res.levels, n)
+          and res.exemplars.min() >= 0 and res.exemplars.max() < n,
+          "dense_topk: exemplars out of range")
+    check(np.array_equal(res.exemplars, first.exemplars)
+          and np.array_equal(res.trace, first.trace),
+          "dense_topk: a second solve gave other decisions")
+
+    t0 = time.perf_counter()
+    ref = solve(blobs, device=DEVICE, build="reference", keep_state=True)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    same_edges = (torch.equal(first.state.idx, ref.state.idx)
+                  and torch.equal(first.state.hap.s, ref.state.hap.s))
+    emit({"phase": "solve_topk", "compare": "fused vs reference build",
+          "reference_wall_s": ref_wall, "edge_sets_equal": same_edges,
+          "exemplars_equal": bool(np.array_equal(first.exemplars,
+                                                 ref.exemplars)),
+          "n_clusters_equal": bool(np.array_equal(first.n_clusters,
+                                                  ref.n_clusters)),
+          "trace_equal": bool(np.array_equal(first.trace, ref.trace))})
+    check(same_edges, "fused and reference builds stored other edges")
+    check(np.array_equal(first.exemplars, ref.exemplars)
+          and np.array_equal(first.n_clusters, ref.n_clusters)
+          and np.array_equal(first.trace, ref.trace)
+          and first.n_sweeps == ref.n_sweeps,
+          "fused and reference builds gave other decisions")
+    del first, ref
+
+    t0 = time.perf_counter()
+    conv = solve(blobs, device=DEVICE, stop="converged")
+    torch.cuda.synchronize()
+    emit({"phase": "solve_topk", "stop": "converged",
+          "wall_s": time.perf_counter() - t0, "n_sweeps": conv.n_sweeps,
+          "converged": conv.converged,
+          "n_clusters": conv.n_clusters.tolist()})
+    check(conv.n_sweeps <= SolveConfig().max_iterations
+          and conv.exemplars.shape == (conv.levels, n),
+          "dense_topk converged: bad result")
+    emit(topk_breakdown(blobs))
+    return launches
+
+
+def topk_breakdown(blobs) -> dict:
+    """Device time of the default dense_topk solve's parts, each timed
+    alone with CUDA events: the fused build, the sampled preference, the
+    50 sweeps (fixed stopping keeps the change counts on the device and
+    reads them once at the end; converged stopping reads one per sweep)."""
+    from repro_torch.kernels.topk_build import topk_similarity_fused
+    from repro_torch.solver import SolveConfig, topk
+
+    cfg = SolveConfig()
+    x = torch.from_numpy(blobs).to(DEVICE)
+    (vals, idx), build_ms = timed(lambda: topk_similarity_fused(x, K_TOPK))
+    pref, pref_ms = timed(lambda: topk.sampled_preferences(
+        x, "median", cfg.metric, topk.sample_generator(cfg.seed)))
+    s_rows, idx_full = topk._with_self_slot(vals, idx, pref)
+    s3k = s_rows.expand(cfg.levels, *s_rows.shape).contiguous()
+    _, sweeps_ms = timed(lambda: topk.run_topk(
+        s3k, idx_full, max_iterations=cfg.max_iterations,
+        damping=cfg.damping))
+    return {"phase": "solve_topk", "breakdown_ms": {
+        "build": build_ms, "sampled_preference": pref_ms,
+        "sweeps_50": sweeps_ms, "host_syncs": "1 (fixed); 1 per sweep "
+        "(converged)"}}
+
+
+def run_profile(points, backend: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.solver import solve
-    kw = dict(backend="dense_fused", max_iterations=10, device=DEVICE)
-    solve(pixels, **kw)
+    kw = dict(backend=backend, max_iterations=10, device=DEVICE)
+    solve(points, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve(pixels, **kw)
+        solve(points, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -379,7 +583,8 @@ def run_profile(pixels) -> None:
                    if e.device_type == DeviceType.CUDA),
                   reverse=True)
     busy = sum(us for us, _, _ in rows) / 1e6
-    emit({"phase": "profile", "sweeps": 10, "wall_s": wall,
+    emit({"phase": "profile", "backend": backend, "n": points.shape[0],
+          "sweeps": 10, "wall_s": wall,
           "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
           "top": [{"name": k[:90], "calls": c, "device_ms": us / 1e3}
                   for us, c, k in rows[:20]]})
@@ -394,7 +599,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
-    from repro_torch.data import image_to_points, mandrill_like_image
+    from repro_torch.data import (
+        gaussian_blobs, image_to_points, mandrill_like_image,
+    )
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -414,17 +621,24 @@ def main() -> int:
           "cached": info.cached, "ptxas": info.ptxas})
 
     pixels = image_to_points(mandrill_like_image(103, 103))
+    blobs, _ = gaussian_blobs(n=N_BLOBS, k=16, seed=0, spread=0.5)
     x = torch.from_numpy(pixels).to(DEVICE)
     summary = run_kernels(x)
-    launches = run_solve(pixels)
+    del x
+    summary["topk_build"] = run_topk_kernel(
+        blobs, image_to_points(mandrill_like_image(512, 512)))
+    launches = run_solve(pixels)                    # dense_fused path
+    launches["topk_build"] = run_solve_topk(blobs)["topk_build"]
     emit({"phase": "launches", "launches": launches})
     if args.profile:
-        run_profile(pixels)
+        run_profile(pixels, "dense_fused")
+        run_profile(blobs, "dense_topk")
 
     kernels = []
     for name, fn_line in (("similarity", "similarity.py:35"),
                           ("responsibility", "responsibility.py:71"),
-                          ("availability", "availability.py:68")):
+                          ("availability", "availability.py:68"),
+                          ("topk_build", "topk_build_fused.py:94")):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",

@@ -11,7 +11,7 @@ import importlib
 
 import torch
 
-KERNELS = ("similarity", "responsibility", "availability")
+KERNELS = ("similarity", "responsibility", "availability", "topk_build")
 
 
 def _module(name: str):

@@ -46,6 +46,8 @@ _SIGNATURES = {
     "repro_availability": ([_P, _P, _P, _P, _P, _P, _I64, _F, _F, _P],
                            ctypes.c_int),
     "repro_availability_scratch": ([_I64], _I64),
+    "repro_topk_build": ([_P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_int,
+                          _P], ctypes.c_int),
     "repro_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

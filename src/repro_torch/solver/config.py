@@ -31,12 +31,6 @@ DISTRIBUTED_THRESHOLD = 64
 #: local exemplars.
 COARSEN_THRESHOLD = 500_000
 
-#: Values ``solve()`` accepts for ``build``, ``sweep`` and ``exchange``
-#: (``repro/solver/topk_build.py`` and ``topk_sharded.py``).
-BUILD_BACKENDS = ("auto", "reference", "twostage", "fused", "sharded")
-SWEEP_MODES = ("auto", "single", "sharded")
-EXCHANGE_MODES = ("auto", "allgather", "psum")
-
 #: Backends that take checkpoint/resume (``repro/solver/checkpointing.py``).
 CHECKPOINT_BACKENDS = ("dense_topk", "coarsen")
 
@@ -92,22 +86,20 @@ class SolveConfig:
     # O(L*N*k) against the dense O(L*N^2).
     k: Optional[int] = None
 
-    # dense_topk similarity build (repro.solver.topk_build). "auto"
-    # resolves per problem/host: sharded on multi-device hosts, the
-    # Pallas fused kernel on TPU, the threshold-gated two-stage merge
-    # for big single-device builds, reference otherwise. Every backend
-    # produces the identical edge set — this knob is throughput only.
+    # dense_topk similarity build (repro_torch.solver.topk_build). "auto"
+    # resolves per problem/device: the CUDA fused kernel on the card,
+    # the threshold-gated two-stage merge (not ported yet) for big
+    # builds elsewhere, reference otherwise. Every backend produces the
+    # identical edge set — this knob is throughput only.
     build: str = "auto"            # auto|reference|twostage|fused|sharded
     build_block_rows: int = 1024   # rows per build tile
     build_block_cols: int = 4096   # cols per reference/fused tile
     build_chunk: int = 128         # kd-cell width (two-stage/sharded gate)
 
-    # dense_topk sweep execution (repro.solver.topk_sharded). "single"
-    # runs the whole Jacobi loop on one device; "sharded" row-shards the
-    # (N, k+1) message layout over the 1-D workers mesh and runs the loop
-    # under shard_map — per-device state AND per-sweep FLOPs drop by the
-    # worker count, the piece that makes million-point solves fit.
-    # "auto" picks sharded on multi-device hosts once N >= SHARDED_SWEEP_N.
+    # dense_topk sweep execution (repro_torch.solver.topk_sharded).
+    # "single" runs the whole Jacobi loop on one device; "sharded"
+    # row-shards the (N, k+1) message layout over several devices (not
+    # ported yet: solve() runs on one device, where it is "single").
     sweep: str = "auto"            # auto|single|sharded
     # column-statistics exchange for the sharded sweep: "allgather"
     # reproduces the single-device scatter order bit-for-bit (O(N*k)

@@ -6,8 +6,9 @@
     res = solve(points, stop="converged")      # run until assignments stable
 
 The engine normalizes the input ((N, d) points, an (N, N) similarity or an
-(L, N, N) stack), builds the similarity (with the CUDA similarity kernel
-on the fused path) and the preferences, selects a backend, and finishes
+(L, N, N) stack), selects a backend, builds the similarity (with the CUDA
+similarity kernel on the fused path) and the preferences — or hands the
+points to a backend that builds its own (``dense_topk``) — and finishes
 the backend's raw result. Unlike the reference it has no degrade chain: a
 kernel that fails to build or launch raises.
 """
@@ -24,11 +25,13 @@ from repro_torch.core.similarity import (
     pairwise_similarity, set_preferences, stack_levels,
 )
 from repro_torch.solver.config import (
-    BUILD_BACKENDS, CHECKPOINT_BACKENDS, COARSEN_PREF_STRATEGIES,
-    EXCHANGE_MODES, SWEEP_MODES, SolveConfig, coarsen_pref_ok,
+    CHECKPOINT_BACKENDS, COARSEN_PREF_STRATEGIES, SolveConfig,
+    coarsen_pref_ok,
 )
 from repro_torch.solver.registry import auto_select, get_backend
 from repro_torch.solver.result import RawBackendResult, SolveResult
+from repro_torch.solver.topk_build import BUILD_BACKENDS
+from repro_torch.solver.topk_sharded import EXCHANGE_MODES, SWEEP_MODES
 
 
 # ------------------------------------------------------------- validation
@@ -133,6 +136,10 @@ def _resolve_device(cfg: SolveConfig) -> torch.device:
 def _normalize_input(data, cfg: SolveConfig, device: torch.device):
     """-> (points, similarity stack, original N) — exactly one of the
     first two is not None; both are float32 tensors on ``device``."""
+    if all(hasattr(data, f) for f in ("src", "dst", "weight", "n_nodes")):
+        raise NotImplementedError(
+            "edge-list input comes with the graph slice (ROADMAP.md queue A "
+            "item 6); pass (N, d) points or a similarity matrix")
     arr = data if isinstance(data, torch.Tensor) else np.asarray(data)
     shape = tuple(arr.shape)
 
@@ -195,11 +202,7 @@ def solve(data, config: Optional[SolveConfig] = None,
 
     backend = cfg.backend
     if backend == "auto":
-        n_devices = (torch.cuda.device_count() if device.type == "cuda"
-                     else 1)
-        backend = auto_select(
-            n, cfg.levels, n_devices=n_devices, has_points=x is not None,
-            platform=device.type, cfg=cfg)
+        backend = route(n, x is not None, device, cfg)
     spec = get_backend(backend)
 
     if cfg.checkpoint_every > 0 or cfg.resume_from:
@@ -222,9 +225,23 @@ def solve(data, config: Optional[SolveConfig] = None,
             "preseed='graph' needs the graph and top-k modules, which are "
             "not ported yet")
 
+    if spec.accepts_points and x is not None:
+        # points-capable backend (dense_topk): it builds its own compressed
+        # similarities, and the dense N x N matrix is never built here
+        return _finalize(spec.run(x, cfg), n, backend)
     if s3 is None:
         s3 = _build_similarity(x, cfg, backend)
     return _finalize(spec.run(s3, cfg), n, backend)
+
+
+def route(n: int, has_points: bool, device: torch.device,
+          cfg: SolveConfig) -> str:
+    """The backend ``backend="auto"`` runs. ``solve`` places everything on
+    the one device ``cfg.device`` names, so the routing counts one device
+    whatever the host has: the multi-device backends and the sharded
+    build and sweep are not ported yet (``ROADMAP.md`` queue A item 8)."""
+    return auto_select(n, cfg.levels, n_devices=1, has_points=has_points,
+                       platform=device.type, cfg=cfg)
 
 
 def finalize_raw(raw: RawBackendResult, n: int, backend: str) -> SolveResult:

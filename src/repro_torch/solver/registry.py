@@ -2,9 +2,9 @@
 ``repro/solver/registry.py``).
 
 A backend is a function ``run(data, cfg) -> RawBackendResult`` plus the
-capability flags the engine dispatches on. Only the dense family is
-ported so far; ``get_backend`` raises ``KeyError`` for any other name,
-listing the registered ones.
+capability flags the engine dispatches on. The dense family and
+``dense_topk`` are ported so far; ``get_backend`` raises ``KeyError`` for
+any other name, listing the registered ones.
 """
 from __future__ import annotations
 
@@ -21,10 +21,18 @@ from repro_torch.solver.result import RawBackendResult
 @dataclasses.dataclass(frozen=True)
 class BackendSpec:
     name: str
-    #: run(similarity_stack, cfg) -> RawBackendResult, on an (L, N, N)
-    #: float32 tensor. (The reference's mesh, point-input and edge-input
-    #: flags arrive with the backends that need them.)
+    #: run(data, cfg) -> RawBackendResult, on an (L, N, N) float32
+    #: similarity stack, or on (N, d) points when ``accepts_points``.
+    #: (The reference's mesh flags arrive with the backends that need
+    #: them.)
     run: Callable[..., RawBackendResult]
+    #: backend builds its own (possibly compressed) similarities from
+    #: points; the engine hands it points when it has them, so the dense
+    #: (N, N) matrix is never built on its account
+    accepts_points: bool = False
+    #: backend consumes an edge list natively (the reference's
+    #: ``repro.graph.EdgeList``; no edge-list input is ported yet)
+    accepts_edges: bool = False
     #: backend honors cfg.stop == "converged"
     supports_early_stop: bool = False
     #: one-line description for docs/CLI listings

@@ -32,7 +32,8 @@ def test_no_jax_or_reference_import(path):
 
 def test_importing_the_solver_loads_no_jax():
     code = ("import sys, repro_torch.solver, repro_torch.kernels.ops, "
-            "repro_torch.convert, repro_torch.data;"
+            "repro_torch.convert, repro_torch.data, "
+            "repro_torch.solver.backends, repro_torch.kernels.topk_build;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "assert not bad, bad")

@@ -26,7 +26,7 @@ from repro.kernels.similarity import similarity_pallas  # noqa: E402
 from repro_torch.core.affinity import affinity_propagation  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     availability, launch_counts, ops, ref, reset_launch_counts,
-    responsibility, similarity,
+    responsibility, similarity, topk_build,
 )
 
 SHAPES = [(32, 32), (96, 64), (128, 128), (130, 70), (256, 256), (300, 200)]
@@ -180,14 +180,16 @@ def test_wrappers_take_plain_version_on_cpu_without_counting(rng):
                                         0.5).numpy())
     ops.neg_sqeuclidean(_t(s[:, :3]))
     ops.availability(_t(r_old), _t(tau), _t(tau), _t(a), lam=0.5)
+    topk_build.topk_similarity_fused(_t(s[:, :3]), 5)
     assert launch_counts() == {"similarity": 0, "responsibility": 0,
-                               "availability": 0}
+                               "availability": 0, "topk_build": 0}
 
 
 @pytest.mark.parametrize("call", [
     lambda t: similarity.neg_sqeuclidean(t, t[:, :3]),
     lambda t: responsibility.responsibility(t, t, t[0], t, 0.5),
     lambda t: availability.availability(t, t[0], t[0], t, 0.5),
+    lambda t: topk_build.topk_similarity_fused(t, 5),
 ])
 def test_wrappers_never_fall_back_off_the_cpu(call):
     """A tensor on another device gets the kernel or an error, never the

@@ -157,8 +157,9 @@ def test_solve_without_device_needs_cuda(points, monkeypatch):
 
 def test_unported_backend_raises_key_error(points):
     with pytest.raises(KeyError, match="registered: dense_fused, "
-                                       "dense_parallel, dense_sequential"):
-        solve(points, backend="dense_topk", device="cpu")
+                                       "dense_parallel, dense_sequential, "
+                                       "dense_topk"):
+        solve(points, backend="graph_affinity", device="cpu")
 
 
 def test_graph_preseed_is_not_ported(points):
