@@ -38,11 +38,29 @@ solve_topk the default ``solve(x)`` on the 200,000 blobs: auto-select
           identical edge sets, exemplars, counts and trace; converged
           stopping; wall time of the second call, peak memory, launch
           counts; where the time goes (build, sampled preference, sweeps)
-launches  the launch counts of each path's main call (``dense_fused``
-          and ``dense_topk``), each read around that call alone
+attention ``ops.flash_attention`` (``flash_attention``) against its plain
+          version on the card: the prefill of tinyllama-1.1b (32 heads,
+          4 KV heads broadcast, head_dim 64; batch 8 x 2,048 -> (256,
+          2,048, 64), causal) in bf16 and f32 and of qwen2.5-32b (40
+          heads, 8 KV heads, head_dim 128; batch 2 x 4,096) in bf16, then
+          D = 256, ragged causal and non-causal S = 1,000, Sq = 192 <
+          Sk = 320 and Sq = 600 > Sk = 300; the branches each case
+          reaches; one launch per call; kernel, plain, SDPA and bound
+          times at the model shapes
+launches  the launch counts of each path's main call (``dense_fused``,
+          ``dense_topk``, ``ops.flash_attention`` at the tinyllama bf16
+          shape), each read around that call alone
+solve_twostage ``solve(x, metric="neg_euclidean")`` on the 200,000
+          blobs: auto routes it to ``dense_topk`` with the two-stage
+          build; against ``build="reference"``: identical edge sets,
+          exemplars, counts and trace; wall time, host syncs; then the
+          two-stage and reference builds alone on the blobs and, with
+          cosine, on the 512 x 512 Mandrill pixels: identical edge sets,
+          build times, host syncs and their round-trip cost
 profile   only with ``--profile``: ``torch.profiler`` traces of a 10-sweep
-          ``dense_fused`` solve and a 10-sweep ``dense_topk`` solve,
-          device time by kernel and the device's idle share
+          ``dense_fused`` solve, a 10-sweep ``dense_topk`` solve and the
+          two-stage build of the 200,000 blobs (neg_euclidean), device
+          time by kernel and the device's idle share
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels line ``{"kernels": [...]}``, and last ``{"ok": true, "device":
@@ -72,6 +90,7 @@ K_TOPK = 64              # SolveConfig().k resolves to it (DEFAULT_K)
 LAM = 0.7                # SolveConfig().damping
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_OPS_PER_S = 67e12       # H100 SXM FP32 outside the tensor cores
+BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 MAX_MISMATCH = 1e-3      # share of points whose exemplar may differ
 DEVICE = "cuda"
 
@@ -112,9 +131,10 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -345,7 +365,8 @@ def run_solve(x) -> dict:
             if backend == "dense_fused":
                 sweeps = r.levels * r.n_sweeps
                 check(counts == {"similarity": 1, "responsibility": sweeps,
-                                 "availability": sweeps, "topk_build": 0},
+                                 "availability": sweeps, "topk_build": 0,
+                                 "flash_attention": 0},
                       f"dense_fused {stop}: launches {counts}, expected "
                       f"similarity 1 and {sweeps} per update")
                 if stop == "fixed":
@@ -493,7 +514,8 @@ def run_solve_topk(blobs) -> dict:
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": launches})
     check(launches == {"similarity": 0, "responsibility": 0,
-                       "availability": 0, "topk_build": 1},
+                       "availability": 0, "topk_build": 1,
+                       "flash_attention": 0},
           f"dense_topk launches {launches}")
     check(res.exemplars.shape == (res.levels, n)
           and res.exemplars.min() >= 0 and res.exemplars.max() < n,
@@ -561,18 +583,257 @@ def topk_breakdown(blobs) -> dict:
         "(converged)"}}
 
 
-def run_profile(points, backend: str) -> None:
+# ---------------------------------------------------------------- attention
+MAX_BF16_DIFFER = 0.05   # share of bf16 outputs that may round a step apart
+
+
+def gqa_qkv(g, batch, heads, kv_heads, seq, d, dtype):
+    """q (batch * heads, seq, d) and k, v with the KV heads broadcast to
+    the query heads before folding, as callers of ``ops.flash_attention``
+    do (query head h reads KV head h // (heads / kv_heads))."""
+    q = torch.randn(batch, heads, seq, d, generator=g, device=DEVICE)
+    k, v = (torch.randn(batch, kv_heads, seq, d, generator=g, device=DEVICE)
+            .repeat_interleave(heads // kv_heads, dim=1) for _ in range(2))
+    return [t.reshape(batch * heads, seq, d).to(dtype).contiguous()
+            for t in (q, k, v)]
+
+
+def attention_branches(sq: int, sk: int, causal: bool) -> dict:
+    """Which of the kernel's masking branches a call of this shape reaches:
+    masked columns inside a diagonal tile, the ragged last key tile (when
+    a causal block reaches it), and query rows >= Sk that see every
+    key."""
+    from repro_torch.kernels.flash_attention import BLOCK_K, BLOCK_Q
+    last_tile = sk - sk % BLOCK_K
+    reached = not causal or -(-sq // BLOCK_Q) * BLOCK_Q > last_tile
+    return {"masked_cols_in_diagonal_tile": causal and sk > 1,
+            "ragged_last_key_tile": sk % BLOCK_K != 0 and reached,
+            "rows_past_sk_see_every_key": causal and sq > sk}
+
+
+def attention_cases() -> list[tuple]:
+    """(name, q, k, v, causal, timed): the prefill geometry of two models
+    of ``src/repro/configs/registry.py``, then the coverage shapes."""
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rand(bh, sq, sk, d, dtype):
+        return [torch.randn(bh, s, d, generator=g, device=DEVICE).to(dtype)
+                for s in (sq, sk, sk)]
+
+    return [
+        # tinyllama-1.1b: 32 heads, 4 KV heads, head_dim 64; batch 8 x 2,048
+        ("tinyllama_bf16", *gqa_qkv(g, 8, 32, 4, 2048, 64, bf16), True, True),
+        ("tinyllama_f32", *gqa_qkv(g, 8, 32, 4, 2048, 64, f32), True, True),
+        # qwen2.5-32b: 40 heads, 8 KV heads, head_dim 128; batch 2 x 4,096
+        ("qwen2.5_bf16", *gqa_qkv(g, 2, 40, 8, 4096, 128, bf16), True, True),
+        ("d256_f32", *rand(8, 1024, 1024, 256, f32), True, False),
+        ("ragged_causal_f32", *rand(16, 1000, 1000, 64, f32), True, False),
+        ("ragged_causal_bf16", *rand(16, 1000, 1000, 64, bf16), True, False),
+        ("noncausal_ragged_sk_f32", *rand(16, 1000, 1000, 64, f32), False,
+         False),
+        ("rect_192x320_f32", *rand(16, 192, 320, 128, f32), True, False),
+        ("sq600_sk300_f32", *rand(16, 600, 300, 64, f32), True, False),
+    ]
+
+
+def run_attention() -> dict:
+    """``ops.flash_attention`` against its plain version on the card at
+    each case; returns the kernels-line summary of the main case
+    (tinyllama, bf16) and its launch count."""
+    from repro_torch.kernels import (
+        flash_attention, launch_counts, ops, reset_launch_counts,
+    )
+    summary = {"max_abs_err": 0.0}
+    for name, q, k, v, causal, timed_case in attention_cases():
+        bh, sq, d = q.shape
+        sk = k.shape[1]
+        reset_launch_counts()
+        got = ops.flash_attention(q, k, v, causal=causal)
+        counts = launch_counts()
+        again = ops.flash_attention(q, k, v, causal=causal)
+        want = flash_attention.plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        check(counts == {"similarity": 0, "responsibility": 0,
+                         "availability": 0, "topk_build": 0,
+                         "flash_attention": 1},
+              f"attention {name}: launches {counts}")
+        check(got.dtype == q.dtype and got.shape == q.shape
+              and bool(torch.isfinite(got).all()),
+              f"attention {name}: bad output")
+        check(torch.equal(got, again), f"attention {name}: re-run differs")
+        err = (got.float() - want.float()).abs()
+        tol = flash_attention.tolerance(want)
+        share = sampled_median(tol) / sampled_median(want.float().abs())
+        differ = float((err > 0).float().mean())
+        line = {"phase": "attention", "case": name, "bh": bh, "sq": sq,
+                "sk": sk, "d": d, "causal": causal,
+                "dtype": str(q.dtype).split(".")[-1],
+                "branches": attention_branches(sq, sk, causal),
+                "launches": counts["flash_attention"],
+                "max_abs_err": float(err.max()), "share_differ": differ,
+                "tolerance": (
+                    f"{flash_attention.F32_ATOL:g} + "
+                    f"{flash_attention.F32_RTOL:g} |plain|"
+                    + (" + one bf16 step of |plain|"
+                       if q.dtype == torch.bfloat16 else "")
+                    + f" (median tolerance / median |output| {share:.3g})")}
+        check(bool((err <= tol).all()),
+              f"attention {name}: error {float(err.max())} beyond tolerance")
+        if q.dtype == torch.float32:
+            check(share <= MAX_TOL_SHARE,
+                  f"attention {name}: tolerance {share:.3g} of a typical "
+                  "output is too loose to fail a wrong kernel")
+        else:
+            check(differ <= MAX_BF16_DIFFER,
+                  f"attention {name}: {differ:.2%} of outputs differ")
+        summary["max_abs_err"] = max(summary["max_abs_err"], float(err.max()))
+        if timed_case:
+            peak = (BF16_OPS_PER_S if q.dtype == torch.bfloat16
+                    else FP32_OPS_PER_S)
+            b_ms, b_by = bound_ms(
+                flash_attention.nbytes(q, k, v),
+                flash_attention.operations(bh, sq, sk, d, causal), peak)
+            k_ms = cuda_ms(lambda: ops.flash_attention(q, k, v,
+                                                       causal=causal),
+                           iters=5)
+            p_ms = cuda_ms(lambda: flash_attention.plain(q, k, v, causal),
+                           iters=1, warmup=1)
+            # (1, BH, S, D) views: SDPA takes its fused kernels only for
+            # 4-D inputs (3-D ones run its plain math path)
+            l_ms = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=causal), iters=5)
+            line.update(kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=l_ms,
+                        library="torch.nn.functional."
+                        "scaled_dot_product_attention(is_causal=True)",
+                        peak_ops_per_s=peak)
+            if name == "tinyllama_bf16":
+                summary.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=l_ms,
+                               launches=counts["flash_attention"])
+        emit(line)
+        del q, k, v, got, again, want, err, tol
+    return summary
+
+
+# --------------------------------------------------------- two-stage build
+def sync_us(reps: int = 200) -> float:
+    """Host round trip of one "any?" read of a small device tensor, as the
+    two-stage build makes one per round and per residual slab (us)."""
+    t = torch.ones(1024, device=DEVICE)
+    bool((t > 0).any())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        bool((t > 0).any())
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def run_solve_twostage(blobs, pixels) -> None:
+    """``solve(x, metric="neg_euclidean")`` on the 200,000 blobs: auto
+    routes it to dense_topk with the two-stage build; held against
+    ``build="reference"``. Then the two-stage build alone with cosine on
+    the 512 x 512 Mandrill pixels against the reference scan."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import topk_similarity as ts
+    from repro_torch.solver import SolveConfig, solve
+    from repro_torch.solver.topk_build import (
+        build_topk_similarity, resolve_build_backend,
+    )
+
+    n, metric = blobs.shape[0], "neg_euclidean"
+    build = resolve_build_backend("auto", n=n, k=K_TOPK, metric=metric,
+                                  platform="cuda")
+    check(build == "twostage", f"{metric} build resolves to {build}")
+    first = solve(blobs, metric=metric, device=DEVICE, keep_state=True)
+    check(first.backend == "dense_topk",
+          f"auto-select on {n} points chose {first.backend}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ts.host_syncs = 0
+    t0 = time.perf_counter()
+    res = solve(blobs, metric=metric, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, syncs = launch_counts(), ts.host_syncs
+    emit({"phase": "solve_twostage", "backend": res.backend, "build": build,
+          "metric": metric, "n": n, "k": K_TOPK, "levels": res.levels,
+          "wall_s": wall, "n_sweeps": res.n_sweeps,
+          "n_clusters": res.n_clusters.tolist(), "host_syncs": syncs,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": launches})
+    # neither the two-stage build nor the sparse sweep has a kernel
+    check(not any(launches.values()), f"launches {launches}")
+    check(np.array_equal(res.exemplars, first.exemplars)
+          and np.array_equal(res.trace, first.trace),
+          "two-stage solve: a second solve gave other decisions")
+    t0 = time.perf_counter()
+    ref = solve(blobs, metric=metric, device=DEVICE, build="reference",
+                keep_state=True)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    same_edges = (torch.equal(first.state.idx, ref.state.idx)
+                  and torch.equal(first.state.hap.s, ref.state.hap.s))
+    emit({"phase": "solve_twostage", "compare": "twostage vs reference "
+          "build", "reference_wall_s": ref_wall,
+          "edge_sets_equal": same_edges,
+          "exemplars_equal": bool(np.array_equal(first.exemplars,
+                                                 ref.exemplars)),
+          "n_clusters_equal": bool(np.array_equal(first.n_clusters,
+                                                  ref.n_clusters)),
+          "trace_equal": bool(np.array_equal(first.trace, ref.trace))})
+    check(same_edges, "two-stage and reference builds stored other edges")
+    check(np.array_equal(first.exemplars, ref.exemplars)
+          and np.array_equal(first.n_clusters, ref.n_clusters)
+          and np.array_equal(first.trace, ref.trace)
+          and first.n_sweeps == ref.n_sweeps,
+          "two-stage and reference builds gave other decisions")
+    del first, ref, res
+
+    round_trip = sync_us()
+    for case, pts, met in (("blobs", blobs, metric),
+                           ("pixels_512", pixels, "cosine")):
+        x = torch.from_numpy(pts).to(DEVICE)
+        cfg = SolveConfig(metric=met)
+        check(resolve_build_backend("auto", n=x.shape[0], k=K_TOPK,
+                                    metric=met, platform="cuda")
+              == "twostage", f"{case}: auto does not take twostage")
+        ts.host_syncs = 0
+        t0 = time.perf_counter()
+        two, two_ms = timed(lambda: build_topk_similarity(
+            x, K_TOPK, cfg.replace(build="twostage")))
+        two_wall = time.perf_counter() - t0
+        syncs = ts.host_syncs
+        ref, ref_ms = timed(lambda: build_topk_similarity(
+            x, K_TOPK, cfg.replace(build="reference")))
+        equal = torch.equal(two[0], ref[0]) and torch.equal(two[1], ref[1])
+        emit({"phase": "solve_twostage", "build_case": case,
+              "n": x.shape[0], "d": x.shape[1], "metric": met, "k": K_TOPK,
+              "twostage_ms": two_ms, "twostage_wall_s": two_wall,
+              "reference_ms": ref_ms, "host_syncs": syncs,
+              "sync_round_trip_us": round_trip,
+              "syncs_round_trip_ms": syncs * round_trip / 1e3,
+              "edge_sets_equal": equal})
+        check(equal, f"twostage {case}: edge set differs from the "
+              "reference scan")
+        del x, two, ref
+
+
+def run_profile(label: dict, fn) -> None:
+    """Trace a second call of ``fn`` with ``torch.profiler``: device time
+    by kernel and the device's idle share over the call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.solver import solve
-    kw = dict(backend=backend, max_iterations=10, device=DEVICE)
-    solve(points, **kw)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve(points, **kw)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -583,11 +844,26 @@ def run_profile(points, backend: str) -> None:
                    if e.device_type == DeviceType.CUDA),
                   reverse=True)
     busy = sum(us for us, _, _ in rows) / 1e6
-    emit({"phase": "profile", "backend": backend, "n": points.shape[0],
-          "sweeps": 10, "wall_s": wall,
+    emit({"phase": "profile", **label, "wall_s": wall,
           "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
           "top": [{"name": k[:90], "calls": c, "device_ms": us / 1e3}
                   for us, c, k in rows[:20]]})
+
+
+def profile_all(pixels, blobs) -> None:
+    from repro_torch.solver import SolveConfig, solve
+    from repro_torch.solver.topk_build import build_topk_similarity
+
+    for points, backend in ((pixels, "dense_fused"), (blobs, "dense_topk")):
+        run_profile({"backend": backend, "n": points.shape[0],
+                     "sweeps": 10},
+                    lambda: solve(points, backend=backend, max_iterations=10,
+                                  device=DEVICE))
+    x = torch.from_numpy(blobs).to(DEVICE)
+    cfg = SolveConfig(metric="neg_euclidean", build="twostage")
+    run_profile({"build": "twostage", "metric": cfg.metric,
+                 "n": x.shape[0], "k": K_TOPK},
+                lambda: build_topk_similarity(x, K_TOPK, cfg))
 
 
 def main() -> int:
@@ -629,16 +905,20 @@ def main() -> int:
         blobs, image_to_points(mandrill_like_image(512, 512)))
     launches = run_solve(pixels)                    # dense_fused path
     launches["topk_build"] = run_solve_topk(blobs)["topk_build"]
+    summary["flash_attention"] = run_attention()
+    launches["flash_attention"] = summary["flash_attention"].pop("launches")
     emit({"phase": "launches", "launches": launches})
+    run_solve_twostage(blobs,
+                       image_to_points(mandrill_like_image(512, 512)))
     if args.profile:
-        run_profile(pixels, "dense_fused")
-        run_profile(blobs, "dense_topk")
+        profile_all(pixels, blobs)
 
     kernels = []
     for name, fn_line in (("similarity", "similarity.py:35"),
                           ("responsibility", "responsibility.py:71"),
                           ("availability", "availability.py:68"),
-                          ("topk_build", "topk_build_fused.py:94")):
+                          ("topk_build", "topk_build_fused.py:94"),
+                          ("flash_attention", "flash_attention.py:77")):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",

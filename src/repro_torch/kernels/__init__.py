@@ -11,7 +11,8 @@ import importlib
 
 import torch
 
-KERNELS = ("similarity", "responsibility", "availability", "topk_build")
+KERNELS = ("similarity", "responsibility", "availability", "topk_build",
+           "flash_attention")
 
 
 def _module(name: str):

@@ -48,6 +48,9 @@ _SIGNATURES = {
     "repro_availability_scratch": ([_I64], _I64),
     "repro_topk_build": ([_P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_int,
                           _P], ctypes.c_int),
+    "repro_flash_attention": ([_P, _P, _P, _P, _I64, _I64, _I64,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+                              ctypes.c_int),
     "repro_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -91,7 +94,10 @@ def _digest() -> str:
 
 
 def _ptxas_lines(stderr: str) -> list[str]:
-    return [ln.strip() for ln in stderr.splitlines() if "ptxas" in ln]
+    # the stack/spill figures follow each "Function properties" line on a
+    # line of their own, without the "ptxas" prefix
+    return [ln.strip() for ln in stderr.splitlines()
+            if "ptxas" in ln or "spill" in ln]
 
 
 def _compile(out_dir: Path) -> dict:

@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import availability as _availability
+from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import responsibility as _responsibility
 from repro_torch.kernels import similarity as _similarity
 
@@ -38,6 +39,14 @@ def hap_iteration_kernels(s, r, a, tau, c, phi, *, lam: float = 0.5):
     r = responsibility(s, a, tau, r, lam=lam)
     a = availability(r, c, phi, a, lam=lam)
     return r, a
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Forward flash attention over (BH, S, D) tensors (heads folded into
+    batch), f32 or bf16. GQA callers broadcast the KV heads to the
+    query-head count before folding."""
+    return _flash_attention.flash_attention(q, k, v, causal)
 
 
 def affinity_propagation_kernels(s: torch.Tensor, *, iterations: int = 100,

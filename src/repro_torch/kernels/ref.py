@@ -7,6 +7,8 @@ rounds the same way is bit-identical to its plain version.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -67,3 +69,21 @@ def neg_sqeuclidean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     xx = (xf * xf).sum(dim=-1).unsqueeze(-1)
     yy = (yf * yf).sum(dim=-1).unsqueeze(-2)
     return (-(xx + yy - 2.0 * (xf @ yf.T)).clamp_min(0.0)).to(x.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Oracle for the flash kernel: plain softmax attention in f32.
+    q (BH, Sq, D); k, v (BH, Sk, D) -> (BH, Sq, D) in q's dtype. Causal is
+    ``row >= col`` with both indices from 0; a row that sees no key gives
+    0, not NaN."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) \
+        / math.sqrt(q.shape[-1])
+    if causal:
+        sq, sk = s.shape[-2:]
+        rows = torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(rows >= cols, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)

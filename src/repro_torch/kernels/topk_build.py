@@ -22,7 +22,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, check_operands, on_cpu, ref, stream_of
-from repro_torch.kernels.topk_similarity import _by_column, _check_k, scan_topk
+from repro_torch.kernels.topk_similarity import (
+    _by_column, _check_k, _ordered_tile, scan_topk,
+)
 
 launches = 0
 
@@ -37,25 +39,11 @@ def plain(x: torch.Tensor, k: int):
                      block_cols=BLOCK_COLS)
 
 
-def _similarity_in_kernel_order(x: torch.Tensor,
-                                y: torch.Tensor) -> torch.Tensor:
-    """``ref.neg_sqeuclidean`` with the dot product and both norms summed
-    over features in ascending order, each product and sum rounded."""
-    x, y = x.float(), y.float()
-    acc = torch.zeros((x.shape[0], y.shape[0]), device=x.device)
-    xx = torch.zeros(x.shape[0], device=x.device)
-    yy = torch.zeros(y.shape[0], device=x.device)
-    for f in range(x.shape[1]):
-        acc = acc + x[:, f, None] * y[None, :, f]
-        xx = xx + x[:, f] * x[:, f]
-        yy = yy + y[:, f] * y[:, f]
-    return -((xx[:, None] + yy[None, :]) - 2.0 * acc).clamp_min(0.0)
-
-
 def in_kernel_order(x: torch.Tensor, k: int):
-    """``plain`` with the kernel's summation order; the kernel must equal
-    it bit for bit."""
-    return scan_topk(x, x, k, _similarity_in_kernel_order,
+    """``plain`` with the kernel's summation order (``_ordered_tile``, the
+    reference scan's tiles on the CPU); the kernel must equal it bit for
+    bit."""
+    return scan_topk(x, x, k, _ordered_tile("neg_sqeuclidean"),
                      block_rows=BLOCK_ROWS, block_cols=BLOCK_COLS)
 
 

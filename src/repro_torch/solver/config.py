@@ -87,8 +87,8 @@ class SolveConfig:
     k: Optional[int] = None
 
     # dense_topk similarity build (repro_torch.solver.topk_build). "auto"
-    # resolves per problem/device: the CUDA fused kernel on the card,
-    # the threshold-gated two-stage merge (not ported yet) for big
+    # resolves per problem/device: the CUDA fused kernel on the card
+    # (neg_sqeuclidean), the threshold-gated two-stage merge for big
     # builds elsewhere, reference otherwise. Every backend produces the
     # identical edge set — this knob is throughput only.
     build: str = "auto"            # auto|reference|twostage|fused|sharded

@@ -2,17 +2,17 @@
 ``repro/solver/topk_build.py``).
 
 ``build_topk_similarity`` resolves ``SolveConfig.build`` and returns the
-``(vals (N, k), idx (N, k))`` layout. ``auto`` picks the fused kernel on
-CUDA for neg-sqeuclidean (the reference's TPU rule, with "TPU" read as
-"CUDA"), else the reference scan; where the reference's rule would pick
-the two-stage build, which is not ported, it picks the reference scan too.
-Every build selects the same edge set; the knob is throughput only.
+``(vals (N, k), idx (N, k))`` layout. ``auto`` follows the reference's
+rule, with "TPU" read as "CUDA": the fused kernel on CUDA for
+neg-sqeuclidean, the two-stage gated merge for big single-device builds
+(``TWOSTAGE_N <= N <= SELECT_EXACT_MAX_N`` with ``4 k <= N``), the
+reference scan otherwise. Every build selects the same edge set; the knob
+is throughput only.
 
 What the port does without, for now (``ROADMAP.md`` queue A):
 
 * no degrade fallback: on CUDA the fused build launches its kernel or
   raises; it never drops to the reference scan;
-* ``build="twostage"`` (the kd-gated merge) raises ``NotImplementedError``;
 * ``build="sharded"``: ``solve`` runs on one device, where the reference's
   sharded driver short-circuits to its inner build, and so does this one.
 
@@ -24,15 +24,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.topk_similarity import topk_similarity
+from repro_torch.kernels.topk_similarity import (
+    SELECT_EXACT_MAX_N, topk_similarity, topk_similarity_twostage,
+)
 from repro_torch.solver.config import SolveConfig
 
 #: every build backend; "auto" resolves to one of the rest
 BUILD_BACKENDS = ("auto", "reference", "twostage", "fused", "sharded")
 
-#: N from which the reference's single-device build off its accelerator
-#: takes the two-stage gated merge (its measured crossover); the port's
-#: auto keeps the reference scan there until that build is ported.
+#: N from which a single-device build takes the two-stage gated merge
+#: (the reference's crossover, measured on its CPU at k = 64).
 TWOSTAGE_N = 32768
 
 #: N at which a multi-device host switches to the sharded driver.
@@ -55,23 +56,23 @@ def resolve_build_backend(name: str, *, n: int, k: int,
     # metric it would reject
     if platform == "cuda" and metric == "neg_sqeuclidean":
         return "fused"
-    # the reference takes the two-stage build for
-    # TWOSTAGE_N <= n <= SELECT_EXACT_MAX_N and 4 k <= n; it is not ported,
-    # and the reference scan selects the same edges, so auto stays here
+    # the two-stage gate needs headroom between k and N to prune, and its
+    # exact tie-break keys cap N; otherwise the reference scan is optimal
+    if TWOSTAGE_N <= n <= SELECT_EXACT_MAX_N and 4 * k <= n:
+        return "twostage"
     return "reference"
 
 
 def _local_build(x: torch.Tensor, k: int, cfg: SolveConfig, backend: str):
     if backend == "twostage":
-        raise NotImplementedError(
-            "build='twostage' (the kd-gated two-stage merge) is not ported "
-            "yet; see ROADMAP.md queue A. Use build='reference', or "
-            "build='fused' on CUDA")
+        return topk_similarity_twostage(
+            x, k, metric=cfg.metric, block_rows=cfg.build_block_rows,
+            chunk=cfg.build_chunk)
     if backend == "fused":
         if cfg.metric != "neg_sqeuclidean":
             raise ValueError(
                 "build='fused' supports metric='neg_sqeuclidean' only; "
-                f"got {cfg.metric!r} (use 'reference')")
+                f"got {cfg.metric!r} (use 'twostage' or 'reference')")
         from repro_torch.kernels.topk_build import topk_similarity_fused
         return topk_similarity_fused(x, k)
     return topk_similarity(

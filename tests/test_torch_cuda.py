@@ -24,6 +24,12 @@ against ``topk_build.plain`` (a matmul) it is held by
 and columns equal wherever a row's k-th and (k+1)-th values are not a
 near-tie. The top-k column sums are summed in a fixed order: two runs are
 bit-identical, and equal to the CPU's.
+Flash attention accumulates in f32 in another order than its plain
+version (cuBLAS products, a softmax): within ``flash_attention.tolerance``
+(the reference test's 2e-5 + 2e-5 |out| in f32; in bf16, compared in the
+working type, one bf16 rounding step more). The two-stage top-k build
+computes its similarities in the reference scan's fixed order: equal to
+the scan on the card bit for bit.
 """
 import pytest
 
@@ -32,10 +38,12 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.kernels import (  # noqa: E402
-    availability, launch_counts, reset_launch_counts, responsibility,
-    similarity, topk_build, topk_ops,
+    availability, flash_attention, launch_counts, ops, reset_launch_counts,
+    responsibility, similarity, topk_build, topk_ops,
 )
-from repro_torch.kernels.topk_similarity import topk_similarity  # noqa: E402
+from repro_torch.kernels.topk_similarity import (  # noqa: E402
+    topk_similarity, topk_similarity_twostage,
+)
 from repro_torch.solver import solve  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -165,7 +173,8 @@ def test_fused_solve_goes_through_the_kernels(dev):
     counts = launch_counts()
     plain = solve(x, backend="dense_parallel", max_iterations=20)
     assert counts == {"similarity": 1, "responsibility": 3 * 20,
-                      "availability": 3 * 20, "topk_build": 0}
+                      "availability": 3 * 20, "topk_build": 0,
+                      "flash_attention": 0}
     np.testing.assert_array_equal(fused.n_clusters, plain.n_clusters)
     assert (fused.exemplars != plain.exemplars).mean() <= 1e-3
 
@@ -240,7 +249,80 @@ def test_topk_solve_goes_through_the_kernel(dev):
     counts = launch_counts()
     assert fused.backend == "dense_topk"
     assert counts == {"similarity": 0, "responsibility": 0,
-                      "availability": 0, "topk_build": 1}
+                      "availability": 0, "topk_build": 1,
+                      "flash_attention": 0}
     ref = solve(x, max_iterations=20, build="reference")
     np.testing.assert_array_equal(fused.exemplars, ref.exemplars)
     np.testing.assert_array_equal(fused.trace, ref.trace)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,causal", [
+    (3, 100, 100, True), (2, 1000, 1000, True), (2, 1000, 1000, False),
+    (2, 192, 320, True), (2, 600, 300, True), (2, 70, 130, False),
+    (1, 1, 1, True)])
+def test_flash_attention_kernel(dev, d, dtype, bh, sq, sk, causal):
+    """Ragged Sq and Sk against the 64-row tiles, non-causal, Sq > Sk
+    (rows >= Sk see every key) and Sq < Sk."""
+    g = torch.Generator(device=dev).manual_seed(bh * sq + sk + d)
+    q, k, v = (torch.randn(bh, s, d, generator=g, device=dev).to(dtype)
+               for s in (sq, sk, sk))
+    reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert launch_counts()["flash_attention"] == 1
+    want = flash_attention.plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= flash_attention.tolerance(want)).all()), \
+        float(err.max())
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+
+
+def test_flash_attention_odd_head_dims(dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+    for d in (1, 5, 33, 200, 255):
+        q, k, v = (torch.randn(2, s, d, generator=g, device=dev)
+                   for s in (77, 55, 55))
+        got = ops.flash_attention(q, k, v)
+        want = flash_attention.plain(q, k, v, True)
+        assert bool(((got - want).abs()
+                     <= flash_attention.tolerance(want)).all()), d
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take(dev):
+    x = torch.zeros(2, 8, 16, device=dev)
+    with pytest.raises(TypeError, match="float32 or"):
+        ops.flash_attention(x.half(), x.half(), x.half())
+    with pytest.raises(TypeError, match="float32 or"):
+        ops.flash_attention(x, x.bfloat16(), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(x.transpose(1, 2).contiguous().transpose(1, 2),
+                            x, x)
+    wide = torch.zeros(2, 8, 257, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="must be \\(BH, Sk, D\\)"):
+        ops.flash_attention(x, x[:, :, :8], x[:, :, :8])
+    with pytest.raises(ValueError, match="several devices"):
+        ops.flash_attention(x, x.cpu(), x)
+
+
+@pytest.mark.parametrize("metric", ["neg_sqeuclidean", "neg_euclidean",
+                                    "cosine"])
+@pytest.mark.parametrize("kind", ["integer", "duplicate", "random"])
+def test_twostage_bit_identical_to_the_scan_on_cuda(dev, metric, kind):
+    x = torch.from_numpy(_topk_points(_gen(11), 3000, 3, kind)).to(dev)
+    got = topk_similarity_twostage(x, 16, metric=metric, block_rows=512,
+                                   chunk=32, round_chunks=4, max_rounds=2,
+                                   residual_chunks=8)
+    want = topk_similarity(x, 16, metric=metric)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if kind != "random" and metric == "neg_sqeuclidean":
+        # exact integer arithmetic: the CPU's scan agrees too (a square
+        # root or a division may round apart between the two devices)
+        cpu = topk_similarity(x.cpu(), 16, metric=metric)
+        assert torch.equal(got[0].cpu(), cpu[0])
+        assert torch.equal(got[1].cpu(), cpu[1])

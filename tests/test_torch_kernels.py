@@ -181,8 +181,10 @@ def test_wrappers_take_plain_version_on_cpu_without_counting(rng):
     ops.neg_sqeuclidean(_t(s[:, :3]))
     ops.availability(_t(r_old), _t(tau), _t(tau), _t(a), lam=0.5)
     topk_build.topk_similarity_fused(_t(s[:, :3]), 5)
+    ops.flash_attention(_t(s[None]), _t(a[None]), _t(r_old[None]))
     assert launch_counts() == {"similarity": 0, "responsibility": 0,
-                               "availability": 0, "topk_build": 0}
+                               "availability": 0, "topk_build": 0,
+                               "flash_attention": 0}
 
 
 @pytest.mark.parametrize("call", [

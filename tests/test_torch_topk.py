@@ -372,25 +372,28 @@ def test_build_resolution_matches_reference(name):
                     want = j_resolve_build(
                         name, n=n, k=k, metric=metric, n_devices=n_devices,
                         platform=j_platform)
-                    if name == "auto" and want == "twostage":
-                        # not ported: auto keeps the reference scan, which
-                        # selects the same edges
-                        want = "reference"
                     assert got == want
 
 
-def test_auto_build_keeps_reference_scan_where_twostage_is_unported():
-    """A default solve off the card at N >= TWOSTAGE_N resolves to the
-    reference scan (the reference would take the two-stage build, which
-    is not ported); only an explicit build="twostage" raises."""
+def test_auto_build_takes_twostage_where_the_reference_does():
+    """A default solve off the card at N >= TWOSTAGE_N (and on the card for
+    the metrics the fused kernel does not take) resolves to the two-stage
+    build, as the reference's rule does; past SELECT_EXACT_MAX_N, or with
+    4 k > N, to the reference scan."""
     assert TWOSTAGE_N == j_topk_build.TWOSTAGE_N
+    assert SELECT_EXACT_MAX_N == j_sim.SELECT_EXACT_MAX_N
     for n in (TWOSTAGE_N, 200_000, SELECT_EXACT_MAX_N):
         assert j_resolve_build("auto", n=n, k=64, n_devices=1,
                                platform="cpu") == "twostage"
         assert resolve_build_backend("auto", n=n, k=64,
-                                     platform="cpu") == "reference"
+                                     platform="cpu") == "twostage"
         assert resolve_build_backend("auto", n=n, k=64,
                                      platform="cuda") == "fused"
+        assert resolve_build_backend("auto", n=n, k=64, metric="cosine",
+                                     platform="cuda") == "twostage"
+    for n, k in ((SELECT_EXACT_MAX_N + 1, 64), (TWOSTAGE_N, 8193)):
+        assert resolve_build_backend("auto", n=n, k=k,
+                                     platform="cpu") == "reference"
     assert resolve_build_backend("twostage", n=TWOSTAGE_N, k=64,
                                  platform="cpu") == "twostage"
 
@@ -414,9 +417,13 @@ def test_sweep_and_exchange_resolution_match_reference():
 
 
 def test_unported_builds_raise_and_sharded_runs_its_inner_build(blobs96):
+    """Every build the knob names runs on one device or raises for a
+    metric it does not take: the two-stage build (ported) and the sharded
+    one (its inner build) select the reference scan's edges."""
     x = torch.from_numpy(blobs96)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_topk_similarity(x, 8, SolveConfig(build="twostage"))
+    two = build_topk_similarity(x, 8, SolveConfig(build="twostage"))
+    assert all(torch.equal(a, b)
+               for a, b in zip(two, p_sim.topk_similarity(x, 8)))
     with pytest.raises(ValueError, match="neg_sqeuclidean' only"):
         build_topk_similarity(x, 8, SolveConfig(build="fused",
                                                 metric="cosine"))
