@@ -39,14 +39,19 @@ solve_topk the default ``solve(x)`` on the 200,000 blobs: auto-select
           stopping; wall time of the second call, peak memory, launch
           counts; where the time goes (build, sampled preference, sweeps)
 attention ``ops.flash_attention`` (``flash_attention``) against its plain
-          version on the card: the prefill of tinyllama-1.1b (32 heads,
-          4 KV heads broadcast, head_dim 64; batch 8 x 2,048 -> (256,
-          2,048, 64), causal) in bf16 and f32 and of qwen2.5-32b (40
-          heads, 8 KV heads, head_dim 128; batch 2 x 4,096) in bf16, then
-          D = 256, ragged causal and non-causal S = 1,000, Sq = 192 <
-          Sk = 320 and Sq = 600 > Sk = 300; the branches each case
-          reaches; one launch per call; kernel, plain, SDPA and bound
-          times at the model shapes
+          version on the card: the flash kernel's ptxas lines; the
+          prefill of tinyllama-1.1b (32 heads, 4 KV heads broadcast,
+          head_dim 64; batch 8 x 2,048 -> (256, 2,048, 64), causal) in
+          bf16 and f32 and of qwen2.5-32b (40 heads, 8 KV heads, head_dim
+          128; batch 2 x 4,096) and recurrentgemma-9b (16 heads, 1 KV
+          head, head_dim 256; batch 8 x 2,048) in bf16, then D = 256 in
+          f32 and bf16, ragged causal and non-causal S = 1,000, Sq = 192
+          < Sk = 320, Sq = 600 > Sk = 300 in f32 and bf16, and a
+          concentrated softmax (q x 4) in bf16; the branches each case
+          reaches; one launch per call; a bit-equal re-run; the largest
+          error and its share of the tolerance; kernel, plain, SDPA and
+          bound times at the model shapes, with the TFLOP/s of the
+          kernel's own tensor-core work (6 D a pair in bf16, 12 D in f32)
 launches  the launch counts of each path's main call (``dense_fused``,
           ``dense_topk``, ``ops.flash_attention`` at the tinyllama bf16
           shape), each read around that call alone
@@ -91,6 +96,10 @@ LAM = 0.7                # SolveConfig().damping
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_OPS_PER_S = 67e12       # H100 SXM FP32 outside the tensor cores
 BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
+# f32-accurate products on the tensor cores: three TF32 products each
+# (3xTF32), so a third of the TF32 rate; the flash kernel's f32 bound
+F32_SPLIT_OPS_PER_S = TF32_OPS_PER_S / 3
 MAX_MISMATCH = 1e-3      # share of points whose exemplar may differ
 DEVICE = "cuda"
 
@@ -598,28 +607,31 @@ def gqa_qkv(g, batch, heads, kv_heads, seq, d, dtype):
             for t in (q, k, v)]
 
 
-def attention_branches(sq: int, sk: int, causal: bool) -> dict:
+def attention_branches(sq: int, sk: int, d: int, dtype: torch.dtype,
+                       causal: bool) -> dict:
     """Which of the kernel's masking branches a call of this shape reaches:
     masked columns inside a diagonal tile, the ragged last key tile (when
     a causal block reaches it), and query rows >= Sk that see every
     key."""
-    from repro_torch.kernels.flash_attention import BLOCK_K, BLOCK_Q
-    last_tile = sk - sk % BLOCK_K
-    reached = not causal or -(-sq // BLOCK_Q) * BLOCK_Q > last_tile
+    from repro_torch.kernels.flash_attention import block_k, block_q
+    step, rows = block_k(d, dtype), block_q(d, dtype)
+    last_tile = sk - sk % step
+    reached = not causal or -(-sq // rows) * rows > last_tile
     return {"masked_cols_in_diagonal_tile": causal and sk > 1,
-            "ragged_last_key_tile": sk % BLOCK_K != 0 and reached,
+            "ragged_last_key_tile": sk % step != 0 and reached,
             "rows_past_sk_see_every_key": causal and sq > sk}
 
 
 def attention_cases() -> list[tuple]:
-    """(name, q, k, v, causal, timed): the prefill geometry of two models
+    """(name, q, k, v, causal, timed): the prefill geometry of three models
     of ``src/repro/configs/registry.py``, then the coverage shapes."""
     g = torch.Generator(device=DEVICE).manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
 
-    def rand(bh, sq, sk, d, dtype):
-        return [torch.randn(bh, s, d, generator=g, device=DEVICE).to(dtype)
-                for s in (sq, sk, sk)]
+    def rand(bh, sq, sk, d, dtype, q_scale=1.0):
+        q, k, v = (torch.randn(bh, s, d, generator=g, device=DEVICE)
+                   for s in (sq, sk, sk))
+        return [t.to(dtype) for t in (q * q_scale, k, v)]
 
     return [
         # tinyllama-1.1b: 32 heads, 4 KV heads, head_dim 64; batch 8 x 2,048
@@ -627,13 +639,23 @@ def attention_cases() -> list[tuple]:
         ("tinyllama_f32", *gqa_qkv(g, 8, 32, 4, 2048, 64, f32), True, True),
         # qwen2.5-32b: 40 heads, 8 KV heads, head_dim 128; batch 2 x 4,096
         ("qwen2.5_bf16", *gqa_qkv(g, 2, 40, 8, 4096, 128, bf16), True, True),
+        # recurrentgemma-9b: 16 heads, 1 KV head, head_dim 256; batch 8 x
+        # 2,048 (its local-attention window, 2,048, spans the sequence)
+        ("recurrentgemma_bf16", *gqa_qkv(g, 8, 16, 1, 2048, 256, bf16), True,
+         True),
         ("d256_f32", *rand(8, 1024, 1024, 256, f32), True, False),
+        ("d256_bf16", *rand(8, 1024, 1024, 256, bf16), True, False),
         ("ragged_causal_f32", *rand(16, 1000, 1000, 64, f32), True, False),
         ("ragged_causal_bf16", *rand(16, 1000, 1000, 64, bf16), True, False),
         ("noncausal_ragged_sk_f32", *rand(16, 1000, 1000, 64, f32), False,
          False),
         ("rect_192x320_f32", *rand(16, 192, 320, 128, f32), True, False),
         ("sq600_sk300_f32", *rand(16, 600, 300, 64, f32), True, False),
+        ("sq600_sk300_bf16", *rand(16, 600, 300, 64, bf16), True, False),
+        # q x 4: a few keys carry each row, where a p rounded once to bf16
+        # would put outputs beyond the tolerance
+        ("concentrated_bf16", *rand(16, 1024, 1024, 64, bf16, 4.0), True,
+         False),
     ]
 
 
@@ -642,8 +664,11 @@ def run_attention() -> dict:
     each case; returns the kernels-line summary of the main case
     (tinyllama, bf16) and its launch count."""
     from repro_torch.kernels import (
-        flash_attention, launch_counts, ops, reset_launch_counts,
+        _build, flash_attention, launch_counts, ops, reset_launch_counts,
     )
+    emit({"phase": "attention", "ptxas": [
+        ln for ln in _build.build_info().ptxas["flash_attention.cu"]
+        if "entry function" in ln or "Used" in ln or "spill" in ln]})
     summary = {"max_abs_err": 0.0}
     for name, q, k, v, causal, timed_case in attention_cases():
         bh, sq, d = q.shape
@@ -669,9 +694,11 @@ def run_attention() -> dict:
         line = {"phase": "attention", "case": name, "bh": bh, "sq": sq,
                 "sk": sk, "d": d, "causal": causal,
                 "dtype": str(q.dtype).split(".")[-1],
-                "branches": attention_branches(sq, sk, causal),
+                "branches": attention_branches(sq, sk, d, q.dtype, causal),
                 "launches": counts["flash_attention"],
-                "max_abs_err": float(err.max()), "share_differ": differ,
+                "max_abs_err": float(err.max()),
+                "max_err_over_tolerance": float((err / tol).max()),
+                "share_differ": differ,
                 "tolerance": (
                     f"{flash_attention.F32_ATOL:g} + "
                     f"{flash_attention.F32_RTOL:g} |plain|"
@@ -689,8 +716,8 @@ def run_attention() -> dict:
                   f"attention {name}: {differ:.2%} of outputs differ")
         summary["max_abs_err"] = max(summary["max_abs_err"], float(err.max()))
         if timed_case:
-            peak = (BF16_OPS_PER_S if q.dtype == torch.bfloat16
-                    else FP32_OPS_PER_S)
+            bf16 = q.dtype == torch.bfloat16
+            peak = BF16_OPS_PER_S if bf16 else F32_SPLIT_OPS_PER_S
             b_ms, b_by = bound_ms(
                 flash_attention.nbytes(q, k, v),
                 flash_attention.operations(bh, sq, sk, d, causal), peak)
@@ -704,11 +731,18 @@ def run_attention() -> dict:
             l_ms = cuda_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q[None], k[None], v[None], is_causal=causal), iters=5)
+            tc_ops = flash_attention.tensor_core_operations(
+                bh, sq, sk, d, causal, q.dtype)
             line.update(kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=l_ms,
+                        bound_by=b_by, bound_share=b_ms / k_ms,
+                        library_ms=l_ms,
                         library="torch.nn.functional."
                         "scaled_dot_product_attention(is_causal=True)",
-                        peak_ops_per_s=peak)
+                        peak_ops_per_s=peak,
+                        tensor_core_tflops=tc_ops / k_ms / 1e9,
+                        tensor_core_peak_tflops=(
+                            BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S)
+                        / 1e12)
             if name == "tinyllama_bf16":
                 summary.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                bound_by=b_by, library_ms=l_ms,

@@ -25,9 +25,12 @@ and columns equal wherever a row's k-th and (k+1)-th values are not a
 near-tie. The top-k column sums are summed in a fixed order: two runs are
 bit-identical, and equal to the CPU's.
 Flash attention accumulates in f32 in another order than its plain
-version (cuBLAS products, a softmax): within ``flash_attention.tolerance``
+version (cuBLAS products, a softmax), with split tensor-core products
+(bf16: p as hi + lo; f32: 3xTF32): within ``flash_attention.tolerance``
 (the reference test's 2e-5 + 2e-5 |out| in f32; in bf16, compared in the
-working type, one bf16 rounding step more). The two-stage top-k build
+working type, one bf16 rounding step more) of the plain version and of
+``flash_attention.in_kernel_precision``, the kernel's roundings in plain
+PyTorch (in f32 within a quarter of the tolerance). The two-stage top-k build
 computes its similarities in the reference scan's fixed order: equal to
 the scan on the card bit for bit.
 """
@@ -258,26 +261,69 @@ def test_topk_solve_goes_through_the_kernel(dev):
 
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh,sq,sk,causal", [
-    (3, 100, 100, True), (2, 1000, 1000, True), (2, 1000, 1000, False),
-    (2, 192, 320, True), (2, 600, 300, True), (2, 70, 130, False),
-    (1, 1, 1, True)])
-def test_flash_attention_kernel(dev, d, dtype, bh, sq, sk, causal):
-    """Ragged Sq and Sk against the 64-row tiles, non-causal, Sq > Sk
-    (rows >= Sk see every key) and Sq < Sk."""
+@pytest.mark.parametrize("bh,sq,sk,causal,scale", [
+    (3, 100, 100, True, 1.0), (2, 1000, 1000, True, 1.0),
+    (2, 1000, 1000, False, 1.0), (2, 192, 320, True, 1.0),
+    (2, 600, 300, True, 1.0), (2, 70, 130, False, 1.0),
+    (1, 1, 1, True, 1.0), (2, 512, 512, True, 4.0)])
+def test_flash_attention_kernel(dev, d, dtype, bh, sq, sk, causal, scale,
+                                record_property):
+    """Every head-dim bucket in both dtypes: ragged Sq and Sk against the
+    64-row tiles, non-causal, Sq > Sk (rows >= Sk see every key), Sq < Sk,
+    and a concentrated softmax (q x 4). Within the tolerance of the oracle
+    and of the kernel's emulation ``in_kernel_precision``; in f32 within a
+    quarter of it from the emulation, which must reproduce the tensor
+    cores' truncating sums for that. The largest error against each, and
+    its share of the tolerance, go to the JUnit report's properties
+    (``--junitxml``)."""
     g = torch.Generator(device=dev).manual_seed(bh * sq + sk + d)
-    q, k, v = (torch.randn(bh, s, d, generator=g, device=dev).to(dtype)
+    q, k, v = (torch.randn(bh, s, d, generator=g, device=dev)
                for s in (sq, sk, sk))
+    q, k, v = (t.to(dtype) for t in (q * scale, k, v))
     reset_launch_counts()
     got = ops.flash_attention(q, k, v, causal=causal)
     assert launch_counts()["flash_attention"] == 1
     want = flash_attention.plain(q, k, v, causal)
+    emulated = flash_attention.in_kernel_precision(q, k, v, causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
-    err = (got.float() - want.float()).abs()
-    assert bool((err <= flash_attention.tolerance(want)).all()), \
-        float(err.max())
+    for name, ref in (("plain", want), ("emulation", emulated)):
+        err = (got.float() - ref.float()).abs()
+        tol = flash_attention.tolerance(ref)
+        record_property(f"max_err_{name}", float(err.max()))
+        record_property(f"max_err_over_tolerance_{name}",
+                        float((err / tol).max()))
+        assert bool((err <= tol).all()), float(err.max())
+    if dtype == torch.float32:
+        assert bool((err <= tol / 4).all()), float(err.max())
     assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_attention_f32_follows_the_tensor_cores_sums(dev, d,
+                                                           record_property):
+    """Of the emulation's models of a tensor-core step (``align_bits``:
+    None = exact sums rounded to nearest; else that many bits kept below
+    f32's last place, the rest truncated), ``MMA_ALIGN_BITS`` lies nearest
+    the kernel, and at a quarter of the exact model's mean distance or
+    less: the kernel's f32 error beyond the operand roundings is the
+    truncation. Causal, q x 4. Mean distances go to the JUnit report."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = (torch.randn(2, 512, d, generator=g, device=dev)
+               for _ in range(3))
+    q = q * 4.0
+    got = ops.flash_attention(q, k, v, causal=True)
+    dist = {}
+    for bits in (None, 0, 1, 2, 3):
+        emulated = flash_attention.in_kernel_precision(q, k, v, True,
+                                                       align_bits=bits)
+        dist[bits] = float((got - emulated).abs().mean())
+        record_property(f"mean_dist_align_bits_{bits}", dist[bits])
+    record_property("mean_err_plain", float(
+        (got - flash_attention.plain(q, k, v, True)).abs().mean()))
+    best = flash_attention.MMA_ALIGN_BITS
+    assert dist[best] == min(dist.values()), dist
+    assert dist[best] <= dist[None] / 4, dist
 
 
 def test_flash_attention_odd_head_dims(dev):
