@@ -23,7 +23,10 @@ topk      the fused top-k build (``topk_build``) against its plain versions
           pixels at 512 x 512 (N = 262,144, d = 3, k = 64) bit for bit
           against ``plain``; a ragged N = 4,099, d = 64, k = 129 case and
           N = 130, k = 129 (= N - 1), also bit for bit against the
-          reference scan on the card; kernel, plain and bound times
+          reference scan on the card; kernel, plain and bound times; at
+          the blobs and the pixels also commit 4608d21's kernel (built
+          from git, or from a copy under ``build/topk_baseline/``, into a
+          temporary directory), bit for bit and timed in turns
 solve     ``solve(x, backend="dense_fused")`` on the paper's Mandrill image
           at full resolution (103 x 103 pixels -> N = 10,609, d = 3; 3
           levels, 50 sweeps), fixed and converged stopping, held against
@@ -62,6 +65,14 @@ solve_twostage ``solve(x, metric="neg_euclidean")`` on the 200,000
           two-stage and reference builds alone on the blobs and, with
           cosine, on the 512 x 512 Mandrill pixels: identical edge sets,
           build times, host syncs and their round-trip cost
+solve_streaming ``solve(x, levels=1)`` on the 200,000 blobs: auto routes
+          it to ``sharded_streaming``; wall time, cluster count, host reads
+solve_coarsen the default ``solve(x)`` on 1,000,000 blobs
+          (``bench_scaling.py``'s largest coarsen row): auto routes it to
+          ``coarsen``; kd cells, local exemplars E, the global stage's
+          backend, the ``topk_build`` launches around the call, and the
+          decisions against the global stage built with the reference
+          scan (identical)
 profile   only with ``--profile``: ``torch.profiler`` traces of a 10-sweep
           ``dense_fused`` solve, a 10-sweep ``dense_topk`` solve and the
           two-stage build of the 200,000 blobs (neg_euclidean), device
@@ -422,6 +433,57 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+BASELINE_COMMIT = "4608d21"   # the first top-k kernel's last commit
+BASELINE_SRC = "src/repro_torch/csrc/topk_build.cu"
+
+
+def baseline_topk():
+    """The top-k kernel of commit BASELINE_COMMIT, built by nvcc into a
+    temporary directory outside the checkout, as a function of (x, k) that
+    returns its (vals, idx) in the kernel's row order; None (with the
+    reason) when neither git nor a copy of that source under
+    ``build/topk_baseline/`` is at hand."""
+    import ctypes
+    import tempfile
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.topk_similarity import _by_column
+
+    git = subprocess.run(["git", "show", f"{BASELINE_COMMIT}:{BASELINE_SRC}"],
+                         cwd=ROOT, capture_output=True, text=True)
+    copy = ROOT / "build" / "topk_baseline" / "topk_build.cu"
+    if git.returncode == 0:
+        src_text, origin = git.stdout, f"git show {BASELINE_COMMIT}"
+    elif copy.is_file():
+        src_text, origin = copy.read_text(), str(copy.relative_to(ROOT))
+    else:
+        return None, "no git history and no build/topk_baseline copy"
+    tmp = Path(tempfile.mkdtemp(prefix="topk_baseline_"))
+    (tmp / "topk_build.cu").write_text(src_text)
+    lib_path = tmp / "libbaseline.so"
+    out = subprocess.run(
+        [_build.nvcc(), *_build.COMPILE_FLAGS, "-I", str(_build.CSRC),
+         "-shared", "-o", str(lib_path), str(tmp / "topk_build.cu")],
+        capture_output=True, text=True)
+    check(out.returncode == 0, f"baseline top-k build failed: {out.stderr}")
+    fn = ctypes.CDLL(str(lib_path)).repro_topk_build
+    fn.argtypes = _build._SIGNATURES["repro_topk_build"][0]
+    fn.restype = ctypes.c_int
+
+    def run(x, k):
+        n, d = x.shape
+        vals = torch.empty((n, k), dtype=torch.float32, device=x.device)
+        idx = torch.empty((n, k), dtype=torch.int32, device=x.device)
+        norms = torch.empty(n, dtype=torch.float32, device=x.device)
+        err = fn(x.data_ptr(), norms.data_ptr(), vals.data_ptr(),
+                 idx.data_ptr(), n, d, k,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"baseline top-k launch failed: {err}")
+        return _by_column(vals, idx)
+
+    return run, origin
+
+
 def run_topk_kernel(blobs, pixels) -> dict:
     """The fused top-k build against its plain versions; returns the
     summary of the main case (the blobs)."""
@@ -438,6 +500,9 @@ def run_topk_kernel(blobs, pixels) -> dict:
             np.float32), 129, "in_kernel_order"),
         ("n130", small, 129, "plain"),
     ]
+    base, origin = baseline_topk()
+    emit({"phase": "topk", "baseline": f"commit {BASELINE_COMMIT}'s kernel",
+          "baseline_source": origin, "timed": base is not None})
     summary = {"max_abs_err": 0.0}
     for name, pts, k, exact in cases:
         x = torch.from_numpy(pts).to(DEVICE)
@@ -485,11 +550,23 @@ def run_topk_kernel(blobs, pixels) -> dict:
                     "similarity list without the (N, N) matrix")
         summary["max_abs_err"] = max(summary["max_abs_err"],
                                      cmp["max_abs_err"])
+        if name in ("blobs", "pixels_512"):
+            # the kernel and the baseline in turns: new, old, old, new
+            def new():
+                return topk_build.topk_similarity_fused(x, k)
+            k_ms = [cuda_ms(new, iters=3, warmup=0)]
+            if base is not None:
+                old = base(x, k)
+                check(torch.equal(old[0], vals) and torch.equal(old[1], idx),
+                      f"topk_build {name}: differs from the baseline kernel")
+                line["baseline_ms"] = [cuda_ms(lambda: base(x, k), iters=3,
+                                               warmup=1) for _ in range(2)]
+                line["bit_identical_to"].append("baseline kernel")
+            k_ms.append(cuda_ms(new, iters=3, warmup=0))
+            line["kernel_ms"] = sum(k_ms) / len(k_ms)
+            line["kernel_ms_runs"] = k_ms
         if name == "blobs":
-            k_ms = cuda_ms(lambda: topk_build.topk_similarity_fused(x, k),
-                           iters=3, warmup=0)
-            line["kernel_ms"] = k_ms
-            summary.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+            summary.update(ms=line["kernel_ms"], plain_ms=p_ms, bound_ms=b_ms,
                            bound_by=b_by, library_ms=None)
         emit(line)
         del x, vals, idx, pv, pi, want, again
@@ -590,6 +667,98 @@ def topk_breakdown(blobs) -> dict:
         "build": build_ms, "sampled_preference": pref_ms,
         "sweeps_50": sweeps_ms, "host_syncs": "1 (fixed); 1 per sweep "
         "(converged)"}}
+
+
+# ------------------------------------------------ streaming and coarsen
+N_COARSEN = 1_000_000    # benchmarks/bench_scaling.py's largest coarsen row
+
+
+def run_solve_streaming(blobs) -> None:
+    """``solve(x, levels=1)`` on the 200,000 blobs: auto routes it to
+    ``sharded_streaming`` (512-point shards, no kernel); wall time, cluster
+    count and the host reads it makes (one per shard, one for the exemplar
+    tier, one for the final assignment)."""
+    from repro_torch.core import streaming
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solver import SolveConfig, solve
+
+    n, shard = blobs.shape[0], SolveConfig().shard_size
+    streaming.host_reads = 0
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve(blobs, levels=1, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shards = -(-n // shard)
+    emit({"phase": "solve_streaming", "backend": res.backend, "n": n,
+          "levels": res.levels, "shards": shards, "wall_s": wall,
+          "n_sweeps": res.n_sweeps, "n_clusters": res.n_clusters.tolist(),
+          "host_reads": streaming.host_reads, "launches": launch_counts()})
+    check(res.backend == "sharded_streaming",
+          f"solve(x, levels=1) on {n} points chose {res.backend}")
+    e = res.exemplars[0]
+    check(res.exemplars.shape == (1, n) and e.min() >= 0 and e.max() < n
+          and res.n_clusters[0] == len(np.unique(e)),
+          "sharded_streaming: bad exemplars")
+    check(streaming.host_reads == shards + 2,
+          f"sharded_streaming: {streaming.host_reads} host reads, expected "
+          f"{shards + 2}")
+
+
+def run_solve_coarsen() -> dict:
+    """The default ``solve(x)`` on 1,000,000 blobs: auto routes it to
+    ``coarsen``; the kd cells, the local exemplars E and the global
+    stage's backend (``dense_topk``, whose build is the fused kernel, once
+    E > 4,096); the ``topk_build`` launches read around the call; the
+    decisions against the same solve whose global stage builds with the
+    reference scan, which must be identical."""
+    from repro_torch.data import gaussian_blobs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solver import SolveConfig, coarsen, solve
+
+    x, _ = gaussian_blobs(n=N_COARSEN, k=16, seed=0, spread=0.5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve(x, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, stats = launch_counts(), dict(coarsen.last_run)
+    emit({"phase": "solve_coarsen", "backend": res.backend, "n": N_COARSEN,
+          "levels": res.levels, "wall_s": wall, "n_sweeps": res.n_sweeps,
+          "n_clusters": res.n_clusters.tolist(), **stats,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": launches})
+    check(res.backend == "coarsen",
+          f"solve(x) on {N_COARSEN} points chose {res.backend}")
+    topk = stats["exemplars"] > SolveConfig().coarsen_global_dense_n
+    check(stats["global_backend"] == ("dense_topk" if topk
+                                      else "dense_parallel"),
+          f"coarsen global stage ran {stats['global_backend']}")
+    check(launches["topk_build"] == int(topk)
+          and launches["similarity"] == launches["responsibility"]
+          == launches["availability"] == 0,
+          f"coarsen launches {launches}")
+    for l in range(res.levels):
+        e = res.exemplars[l]
+        check(e.min() >= 0 and e.max() < N_COARSEN
+              and res.n_clusters[l] == len(np.unique(e)),
+              f"coarsen level {l}: bad exemplars")
+
+    t0 = time.perf_counter()
+    ref = solve(x, device=DEVICE, build="reference")
+    torch.cuda.synchronize()
+    same = (np.array_equal(res.exemplars, ref.exemplars)
+            and np.array_equal(res.n_clusters, ref.n_clusters)
+            and res.n_sweeps == ref.n_sweeps)
+    emit({"phase": "solve_coarsen", "compare": "global stage: fused vs "
+          "reference build", "reference_wall_s": time.perf_counter() - t0,
+          "decisions_equal": same})
+    check(same, "coarsen: the fused and reference global builds gave other "
+          "decisions")
+    return launches
 
 
 # ---------------------------------------------------------------- attention
@@ -944,6 +1113,8 @@ def main() -> int:
     emit({"phase": "launches", "launches": launches})
     run_solve_twostage(blobs,
                        image_to_points(mandrill_like_image(512, 512)))
+    run_solve_streaming(blobs)
+    run_solve_coarsen()
     if args.profile:
         profile_all(pixels, blobs)
 

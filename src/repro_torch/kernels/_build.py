@@ -48,6 +48,7 @@ _SIGNATURES = {
     "repro_availability_scratch": ([_I64], _I64),
     "repro_topk_build": ([_P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_int,
                           _P], ctypes.c_int),
+    "repro_topk_build_scratch": ([_I64, ctypes.c_int], _I64),
     "repro_flash_attention": ([_P, _P, _P, _P, _I64, _I64, _I64,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
                               ctypes.c_int),

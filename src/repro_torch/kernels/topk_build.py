@@ -5,10 +5,12 @@ The kernel is ``csrc/topk_build.cu``: it computes every neg-sqeuclidean
 similarity with the arithmetic of ``csrc/similarity.cu`` and folds it into
 a per-row running top-k kept sorted in shared memory, never writing the
 (N, N) matrix. Bound by its FP32 operations: n^2 (2d + 5) for the pairs
-(the dot, the distance formula, the gate's compare) and 2nd for the norms.
+(the dot, the distance formula, the gate's compare) and 2nd for the norms;
+without FMAs each is an instruction, so its floor is twice that bound.
 Its output rows are sorted by (value desc, col asc); the wrapper reorders
 them by column with a sort after the kernel, as the reference argsorts
-outside its ``pallas_call``.
+outside its ``pallas_call``. ``gate_in_kernel`` is the kernel's one-compare
+gate, which the CPU tests hold to the plain ``-max(d2, 0) > thr``.
 
 ``plain`` is the reference scan over tiles of ``ref.neg_sqeuclidean`` with
 a stable-sort merge. ``in_kernel_order`` is the same scan with the tiles'
@@ -60,16 +62,39 @@ def topk_similarity_fused(x: torch.Tensor, k: int):
     if n >= 2 ** 31:
         raise ValueError(f"topk_build: N = {n} exceeds the kernel's int32 "
                          "column ids")
+    lib = _build.lib()
     vals = torch.empty((n, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((n, k), dtype=torch.int32, device=x.device)
-    norms = torch.empty(n, dtype=torch.float32, device=x.device)
+    scratch = torch.empty(lib.repro_topk_build_scratch(n, d),
+                          dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _build.lib().repro_topk_build(
-            x.data_ptr(), norms.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+        err = lib.repro_topk_build(
+            x.data_ptr(), scratch.data_ptr(), vals.data_ptr(), idx.data_ptr(),
             n, d, k, stream_of(x))
     _build.check(err, "topk_build")
     launches += 1
     return _by_column(vals, idx)
+
+
+def gate_in_kernel(d2: torch.Tensor, thr: torch.Tensor,
+                   ties: bool = False) -> torch.Tensor:
+    """The kernel's gate on squared distances ``d2`` against a row's k-th
+    value ``thr`` (broadcast), one compare a pair: ``d2 < G``.
+
+    For columns above every listed one (``ties=False``), ``G = -thr`` while
+    ``thr < 0`` and ``-inf`` otherwise, which equals ``-max(d2, 0) > thr``.
+    For columns below some listed one (``ties=True``, where a tie with a
+    smaller column wins), ``G`` is the float after ``-thr`` (``-inf`` for a
+    positive ``thr``, which no list holds), which equals
+    ``-max(d2, 0) >= thr`` but for a pair at -inf, which joins no list.
+    Both hold for every ``d2`` that is not NaN (the kernel lets a NaN
+    through to its exact re-test)."""
+    if ties:
+        g = torch.where(thr > 0, float("-inf"),
+                        torch.nextafter(-thr, torch.tensor(float("inf"))))
+    else:
+        g = torch.where(thr < 0, -thr, torch.full_like(thr, float("-inf")))
+    return d2 < g
 
 
 def tolerance(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

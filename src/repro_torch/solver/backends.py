@@ -9,12 +9,16 @@ dense_fused        §3 Jacobi schedule, CUDA responsibility/availability
 dense_topk         §3 Jacobi schedule on top-k-per-row sparse
                    similarities; O(L*N*k) state, exact at k = N-1; from
                    points the CUDA fused top-k build on the card
+sharded_streaming  two-tier shard-local AP, O((N/S)^2) peak state
+coarsen            kd-partition -> batched local dense solves -> global
+                   exemplar solve; the N=1e7-on-one-host route
 
 The reference's other backends (graph_affinity, mr1d_stats,
-mr1d_transpose, mr2d, sharded_streaming, coarsen) come with later slices.
+mr1d_transpose, mr2d) come with later slices.
 """
 from __future__ import annotations
 
+from repro_torch.core.streaming import streaming_hap
 from repro_torch.solver import dense, topk
 from repro_torch.solver.config import SolveConfig
 from repro_torch.solver.registry import BackendSpec, register_backend
@@ -59,7 +63,7 @@ def _topk_run(data, cfg: SolveConfig) -> RawBackendResult:
     if cfg.checkpoint_every > 0 or cfg.resume_from:
         raise NotImplementedError(
             "checkpoint/resume of dense_topk comes with the fault-tolerance "
-            "slice (ROADMAP.md queue A item 7)")
+            "slice (ROADMAP.md queue A.5)")
     n = data.shape[1] if data.ndim == 3 else data.shape[0]
     k = topk.resolve_k(cfg.k, n)
     if data.ndim == 3:
@@ -83,3 +87,31 @@ register_backend(BackendSpec(
     supports_early_stop=True,
     doc="top-k-per-row sparse similarities; O(L*N*k) state, exact at "
         "k=N-1"))
+
+
+def _streaming_run(x, cfg: SolveConfig) -> RawBackendResult:
+    res = streaming_hap(
+        x, shard_size=cfg.shard_size, iterations=cfg.max_iterations,
+        damping=cfg.damping, pref_scale=cfg.pref_scale, seed=cfg.seed)
+    # two internal tiers collapse to one output level: each point's final
+    # exemplar (its shard exemplar's top-level exemplar)
+    return RawBackendResult(
+        exemplars=res.exemplar_of[None, :], n_sweeps=cfg.max_iterations,
+        converged=None, trace=None)
+
+
+register_backend(BackendSpec(
+    name="sharded_streaming", run=_streaming_run, needs_points=True,
+    doc="two-tier shard-local AP; O((N/S)^2) state, single output level"))
+
+
+def _coarsen_run(x, cfg: SolveConfig) -> RawBackendResult:
+    from repro_torch.solver.coarsen import run_coarsen
+    return run_coarsen(x, cfg)
+
+
+register_backend(BackendSpec(
+    name="coarsen", run=_coarsen_run, needs_points=True,
+    supports_early_stop=True,
+    doc="two-level kd-partition -> batched local dense solves -> global "
+        "exemplar solve; O(partition_size^2 * batch) peak state"))

@@ -8,8 +8,9 @@
 The engine normalizes the input ((N, d) points, an (N, N) similarity or an
 (L, N, N) stack), selects a backend, builds the similarity (with the CUDA
 similarity kernel on the fused path) and the preferences — or hands the
-points to a backend that builds its own (``dense_topk``) — and finishes
-the backend's raw result. Unlike the reference it has no degrade chain: a
+points to a backend that builds its own (``dense_topk``,
+``sharded_streaming``, ``coarsen``) — and finishes the backend's raw
+result. Unlike the reference it has no degrade chain: a
 kernel that fails to build or launch raises.
 """
 from __future__ import annotations
@@ -24,10 +25,7 @@ from repro_torch.core.preferences import make_preferences
 from repro_torch.core.similarity import (
     pairwise_similarity, set_preferences, stack_levels,
 )
-from repro_torch.solver.config import (
-    CHECKPOINT_BACKENDS, COARSEN_PREF_STRATEGIES, SolveConfig,
-    coarsen_pref_ok,
-)
+from repro_torch.solver.config import CHECKPOINT_BACKENDS, SolveConfig
 from repro_torch.solver.registry import auto_select, get_backend
 from repro_torch.solver.result import RawBackendResult, SolveResult
 from repro_torch.solver.topk_build import BUILD_BACKENDS
@@ -35,28 +33,6 @@ from repro_torch.solver.topk_sharded import EXCHANGE_MODES, SWEEP_MODES
 
 
 # ------------------------------------------------------------- validation
-def _check_coarsen_config(cfg: SolveConfig) -> None:
-    if cfg.partition_size < 2:
-        raise ValueError(
-            f"SolveConfig.partition_size must be >= 2 "
-            f"(got {cfg.partition_size})")
-    if cfg.coarsen_batch < 1:
-        raise ValueError(
-            f"SolveConfig.coarsen_batch must be >= 1 "
-            f"(got {cfg.coarsen_batch})")
-    if cfg.coarsen_global_dense_n < 2 or cfg.coarsen_global_k < 1:
-        raise ValueError(
-            "SolveConfig.coarsen_global_dense_n must be >= 2 and "
-            f"coarsen_global_k >= 1 (got {cfg.coarsen_global_dense_n}/"
-            f"{cfg.coarsen_global_k})")
-    if not coarsen_pref_ok(cfg.preference):
-        raise ValueError(
-            "the coarsen backend's batched local solves support "
-            f"preference in {COARSEN_PREF_STRATEGIES} or a scalar; got "
-            f"{cfg.preference!r} (draw 'random' host-side and pass the "
-            "scalar; per-point arrays don't decompose over partitions)")
-
-
 def validate_config(cfg: SolveConfig, n: int) -> None:
     """Reject invalid knob combinations at the front door, with the
     problem size in hand, with the reference's messages."""
@@ -118,7 +94,8 @@ def validate_config(cfg: SolveConfig, n: int) -> None:
             "SolveConfig.checkpoint_every > 0 needs checkpoint_dir to "
             "write the snapshots into")
     if cfg.backend == "coarsen":
-        _check_coarsen_config(cfg)
+        from repro_torch.solver.coarsen import check_coarsen_config
+        check_coarsen_config(cfg)
 
 
 # ------------------------------------------------------------------ input
@@ -138,8 +115,8 @@ def _normalize_input(data, cfg: SolveConfig, device: torch.device):
     first two is not None; both are float32 tensors on ``device``."""
     if all(hasattr(data, f) for f in ("src", "dst", "weight", "n_nodes")):
         raise NotImplementedError(
-            "edge-list input comes with the graph slice (ROADMAP.md queue A "
-            "item 6); pass (N, d) points or a similarity matrix")
+            "edge-list input comes with the graph slice (ROADMAP.md queue "
+            "A.4); pass (N, d) points or a similarity matrix")
     arr = data if isinstance(data, torch.Tensor) else np.asarray(data)
     shape = tuple(arr.shape)
 
@@ -211,6 +188,10 @@ def solve(data, config: Optional[SolveConfig] = None,
                 f"checkpoint/resume is supported by {CHECKPOINT_BACKENDS} "
                 f"(the long-running paths), not backend {backend!r}; drop "
                 "checkpoint_every/resume_from or pick a supported backend")
+    if spec.needs_points and x is None:
+        raise ValueError(
+            f"backend {backend!r} clusters raw points (it never builds the "
+            "global similarity matrix); pass an (N, d) array")
     if cfg.stop == "converged" and not spec.supports_early_stop:
         raise ValueError(
             f"backend {backend!r} runs a fixed distributed sweep schedule "
@@ -225,9 +206,10 @@ def solve(data, config: Optional[SolveConfig] = None,
             "preseed='graph' needs the graph and top-k modules, which are "
             "not ported yet")
 
-    if spec.accepts_points and x is not None:
-        # points-capable backend (dense_topk): it builds its own compressed
-        # similarities, and the dense N x N matrix is never built here
+    if spec.needs_points or (spec.accepts_points and x is not None):
+        # points backends (sharded_streaming, coarsen, dense_topk) build
+        # their own similarities, and the dense N x N matrix is never
+        # built here
         return _finalize(spec.run(x, cfg), n, backend)
     if s3 is None:
         s3 = _build_similarity(x, cfg, backend)
@@ -239,7 +221,7 @@ def route(n: int, has_points: bool, device: torch.device,
     """The backend ``backend="auto"`` runs. ``solve`` places everything on
     the one device ``cfg.device`` names, so the routing counts one device
     whatever the host has: the multi-device backends and the sharded
-    build and sweep are not ported yet (``ROADMAP.md`` queue A item 8)."""
+    build and sweep are not ported yet (``ROADMAP.md`` queue A.7)."""
     return auto_select(n, cfg.levels, n_devices=1, has_points=has_points,
                        platform=device.type, cfg=cfg)
 

@@ -2,9 +2,10 @@
 ``repro/solver/registry.py``).
 
 A backend is a function ``run(data, cfg) -> RawBackendResult`` plus the
-capability flags the engine dispatches on. The dense family and
-``dense_topk`` are ported so far; ``get_backend`` raises ``KeyError`` for
-any other name, listing the registered ones.
+capability flags the engine dispatches on. The dense family,
+``dense_topk``, ``sharded_streaming`` and ``coarsen`` are ported so far;
+``get_backend`` raises ``KeyError`` for any other name, listing the
+registered ones.
 """
 from __future__ import annotations
 
@@ -22,10 +23,12 @@ from repro_torch.solver.result import RawBackendResult
 class BackendSpec:
     name: str
     #: run(data, cfg) -> RawBackendResult, on an (L, N, N) float32
-    #: similarity stack, or on (N, d) points when ``accepts_points``.
-    #: (The reference's mesh flags arrive with the backends that need
-    #: them.)
+    #: similarity stack, or on (N, d) points when ``needs_points`` or
+    #: ``accepts_points``. (The reference's mesh flags arrive with the
+    #: backends that need them.)
     run: Callable[..., RawBackendResult]
+    #: backend consumes raw points, not a similarity tensor
+    needs_points: bool = False
     #: backend builds its own (possibly compressed) similarities from
     #: points; the engine hands it points when it has them, so the dense
     #: (N, N) matrix is never built on its account

@@ -7,8 +7,8 @@ the resolvers and thresholds are a routing table that the tests hold
 against the reference's, and nothing in ``solve`` calls them: ``solve``
 runs on one device, where every sweep mode runs the single-device loop
 (the reference's own detour for a one-worker mesh). The row-sharded sweep
-and its exchanges come with the distributed slice (``ROADMAP.md`` queue A
-item 8).
+and its exchanges come with the distributed slice (``ROADMAP.md`` queue
+A.7).
 """
 from __future__ import annotations
 

@@ -193,11 +193,15 @@ def _topk_points(rng, n, d, kind):
 
 @pytest.mark.parametrize("n,d,k", [
     (2, 1, 1), (33, 2, 32), (130, 3, 129), (130, 3, 5), (257, 64, 64),
-    (1001, 3, 64), (700, 5, 699), (1500, 2, 650), (4099, 64, 129)])
+    (1001, 3, 64), (700, 5, 699), (1500, 2, 650), (4099, 64, 129),
+    (1500, 1, 640), (999, 4, 64), (700, 7, 641), (777, 8, 100),
+    (701, 15, 640), (333, 16, 17), (1027, 2, 641)])
 @pytest.mark.parametrize("kind", ["random", "integer", "duplicate"])
 def test_topk_build_kernel_bit_identical(dev, n, d, k, kind):
-    """k = N - 1, ragged N against the 32-row blocks, and k past the
-    shared-memory lists (640) included."""
+    """Every feature bucket of the kernel (d = 1, 2, 3 exactly; 4-7 and
+    8-15 zero-padded; the staged path from 16), k = N - 1, k on both sides
+    of the shared-memory lists (640), and N a multiple of neither the rows
+    of a block nor the 128-column step."""
     x = torch.from_numpy(_topk_points(_gen(n * d + k), n, d, kind)).to(dev)
     got = topk_build.topk_similarity_fused(x, k)
     again = topk_build.topk_similarity_fused(x, k)

@@ -156,9 +156,9 @@ def test_solve_without_device_needs_cuda(points, monkeypatch):
 
 
 def test_unported_backend_raises_key_error(points):
-    with pytest.raises(KeyError, match="registered: dense_fused, "
+    with pytest.raises(KeyError, match="registered: coarsen, dense_fused, "
                                        "dense_parallel, dense_sequential, "
-                                       "dense_topk"):
+                                       "dense_topk, sharded_streaming"):
         solve(points, backend="graph_affinity", device="cpu")
 
 

@@ -120,6 +120,63 @@ def test_compare_with_plain_passes_the_kernel_order_and_fails_faults(n, d,
         x, k, vals, swapped)["idx_equal_off_ties"]
 
 
+def _plain_gate(d2, thr, ties=False):
+    s = -torch.clamp_min(d2, 0)
+    if ties:           # a tie passes; a pair at -inf joins no list
+        return (s >= thr) & (s > float("-inf"))
+    return s > thr
+
+
+_TINY = float(np.finfo(np.float32).smallest_subnormal)
+_EDGE_D2 = [0.0, -0.0, _TINY, -_TINY, 2 * _TINY, 1.1754942e-38, -1e-7,
+            -3.0, 1e-30, 0.5, 1.0, 7.25, 3.4e38, float("inf"),
+            float("-inf")]
+_EDGE_THR = [float("-inf"), -0.0, 0.0, -_TINY, _TINY, -2 * _TINY,
+             -1.1754942e-38, -1e-30, -0.5, -1.0, -7.25, -3.4e38, 1.0]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_gate_in_kernel_on_edge_values(ties):
+    """The kernel's one-compare gate equals the plain one on every pair of
+    edge values: signed zeros, subnormals, negative d2 from rounding, -inf
+    (an empty list) and +-inf d2. Strict (columns above the list's): d2 <
+    -thr while thr < 0, nothing passes at thr = +-0. With ties (columns
+    below some listed one): d2 below the float after -thr."""
+    d2 = torch.tensor(_EDGE_D2, dtype=torch.float32)[:, None]
+    thr = torch.tensor(_EDGE_THR, dtype=torch.float32)[None, :]
+    got = topk_build.gate_in_kernel(d2, thr, ties)
+    assert torch.equal(got, _plain_gate(d2, thr, ties))
+    # against the neighbours of each threshold, one ulp either side
+    near = torch.nextafter(-thr.expand(len(_EDGE_D2), -1),
+                           torch.tensor(float("inf")))
+    for probe in (near, torch.nextafter(near, torch.tensor(0.0)), -thr):
+        probe = probe.expand(len(_EDGE_D2), -1)
+        assert torch.equal(topk_build.gate_in_kernel(probe, thr, ties),
+                           _plain_gate(probe, thr, ties))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_gate_in_kernel_on_drawn_values(ties):
+    hyp = pytest.importorskip("hypothesis")
+    st = hyp.strategies
+    f32 = st.floats(allow_nan=False, width=32)
+
+    @hyp.settings(max_examples=400, deadline=None, derandomize=True)
+    @hyp.given(d2=f32, thr=f32, shift=st.integers(-2, 2))
+    def check(d2, thr, shift):
+        t = torch.tensor([thr], dtype=torch.float32)
+        # also d2 a few ulps from the bound -thr, where the two gates flip
+        near = -t if thr != 0 else torch.zeros(1)
+        for _ in range(abs(shift)):
+            near = torch.nextafter(near, torch.tensor(
+                float("inf") if shift > 0 else float("-inf")))
+        for v in (torch.tensor([d2], dtype=torch.float32), near):
+            assert torch.equal(topk_build.gate_in_kernel(v, t, ties),
+                               _plain_gate(v, t, ties))
+
+    check()
+
+
 @pytest.mark.parametrize("n,d,k", [(130, 3, 5), (97, 64, 40), (64, 2, 63)])
 def test_select_exact_matches_reference_on_shuffled_candidates(n, d, k):
     """Candidates out of column order: the explicit (value desc, col asc)
