@@ -73,6 +73,27 @@ solve_coarsen the default ``solve(x)`` on 1,000,000 blobs
           backend, the ``topk_build`` launches around the call, and the
           decisions against the global stage built with the reference
           scan (identical)
+solve_graph the 200,000 blobs' top-k graph: ``EdgeList.from_points(x,
+          64)`` (the fused kernel, one launch; its edge set bit for bit the
+          fused build's), ``canonical()`` and ``to_topk()`` timed on the
+          host (edge counts, padded degree, layout bytes);
+          ``solve(edge_list)`` -> ``graph_affinity`` (3 levels): rounds,
+          host reads, wall time, clusters per level, labels, rounds and
+          trace equal to the same round loop on the CPU; at 20,000 blobs
+          equal to a numpy Borůvka oracle; ``graph_affinity`` from points
+          (one launch); the edges natively on ``dense_topk`` (kk, state
+          bytes) against the default build with the same preference; the
+          default solve with ``preseed="graph"`` against
+          ``build="reference"``
+solve_checkpoint the default ``dense_topk`` solve of the blobs under both
+          stops, run plain, checkpointed every 10 sweeps, crashed at the
+          second save and resumed, and resumed from a copy of the crashed
+          directory: state, decisions and trace bit-equal across the four;
+          wall times, ms per save, bytes per step, ms per resume; then
+          ``solve`` on the 1,000,000 blobs (coarsen) crashed mid-local and
+          after the global save, each resumed to the uninterrupted
+          ``solve_coarsen`` decisions; ``topk_build``'s launches on every
+          path that builds, each read around its own run
 profile   only with ``--profile``: ``torch.profiler`` traces of a 10-sweep
           ``dense_fused`` solve, a 10-sweep ``dense_topk`` solve and the
           two-stage build of the 200,000 blobs (neg_euclidean), device
@@ -573,8 +594,9 @@ def run_topk_kernel(blobs, pixels) -> dict:
     return summary
 
 
-def run_solve_topk(blobs) -> dict:
-    """The default solve on the 200,000 blobs; returns its launch counts."""
+def run_solve_topk(blobs):
+    """The default solve on the 200,000 blobs; returns its launch counts
+    and its result."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.solver import SolveConfig, solve
     from repro_torch.solver.topk_build import resolve_build_backend
@@ -642,7 +664,7 @@ def run_solve_topk(blobs) -> dict:
           and conv.exemplars.shape == (conv.levels, n),
           "dense_topk converged: bad result")
     emit(topk_breakdown(blobs))
-    return launches
+    return launches, res
 
 
 def topk_breakdown(blobs) -> dict:
@@ -706,13 +728,13 @@ def run_solve_streaming(blobs) -> None:
           f"{shards + 2}")
 
 
-def run_solve_coarsen() -> dict:
+def run_solve_coarsen():
     """The default ``solve(x)`` on 1,000,000 blobs: auto routes it to
     ``coarsen``; the kd cells, the local exemplars E and the global
     stage's backend (``dense_topk``, whose build is the fused kernel, once
     E > 4,096); the ``topk_build`` launches read around the call; the
     decisions against the same solve whose global stage builds with the
-    reference scan, which must be identical."""
+    reference scan, which must be identical. Returns the result."""
     from repro_torch.data import gaussian_blobs
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.solver import SolveConfig, coarsen, solve
@@ -758,7 +780,424 @@ def run_solve_coarsen() -> dict:
           "decisions_equal": same})
     check(same, "coarsen: the fused and reference global builds gave other "
           "decisions")
-    return launches
+    return res
+
+
+# ------------------------------------------- graph input and checkpoints
+K_GRAPH = 64             # EdgeList.from_points(blobs, 64): the default k
+N_ORACLE = 20_000        # blobs at which Borůvka is held to the oracle
+CKPT_EVERY = 10          # sweeps between dense_topk checkpoints
+COARSEN_CKPT_EVERY = 64  # coarsen batch groups between checkpoints (of 512)
+
+
+def boruvka_oracle(el, target: int = 1):
+    """Borůvka over a canonical edge list in numpy, by the contract of
+    ``tests/test_graph.py`` (copied): per-cluster best edge = (max weight,
+    min destination-leader id), mutual pairs hooked to the smaller id,
+    pointer jumping to a fixed point. Returns (label snapshots, rounds)."""
+    from repro_torch.core.assignments import flatten_pointers
+
+    src, dst, w, n = el.src, el.dst, el.weight, el.n_nodes
+    ids = np.arange(n)
+    labels = ids.copy()
+    hist = []
+    while (labels == ids).sum() > target:
+        ls, ld = labels[src], labels[dst]
+        act = ls != ld
+        if not act.any():
+            break
+        best_w = np.full(n, -np.inf)
+        np.maximum.at(best_w, ls[act], w[act])
+        ach = act & (w == best_w[ls])
+        best_t = np.full(n, n)
+        np.minimum.at(best_t, ls[ach], ld[ach])
+        parent = ids.copy()
+        has = best_t < n
+        parent[has] = best_t[has]
+        two = (parent[parent] == ids) & (ids < parent)
+        parent[two] = ids[two]
+        labels = flatten_pointers(parent)[labels]
+        hist.append(labels.copy())
+    return hist, len(hist)
+
+
+def graph_layout(points, k: int) -> dict:
+    """``EdgeList.from_points`` on the card (the fused kernel, its launches
+    read around the call), then ``canonical()`` and ``to_topk()`` on the
+    host, each timed; the edge set held bit for bit to the fused build's
+    own output."""
+    from repro_torch.graph import EdgeList
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.topk_build import topk_similarity_fused
+
+    x = torch.from_numpy(points).to(DEVICE)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    el = EdgeList.from_points(x, k)
+    build_s = time.perf_counter() - t0
+    launches = launch_counts()
+    check(launches["topk_build"] == 1,
+          f"EdgeList.from_points launches {launches}")
+    vals, idx = topk_similarity_fused(x, k)
+    want = EdgeList.from_topk(vals.cpu().numpy(), idx.cpu().numpy())
+    same = all(np.array_equal(getattr(el, f), getattr(want, f))
+               for f in ("src", "dst", "weight"))
+    check(same, "EdgeList.from_points: not the fused build's edge set")
+    t0 = time.perf_counter()
+    canon = el.canonical()
+    canon_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tv, ti = canon.to_topk()
+    to_topk_s = time.perf_counter() - t0
+    return {"el": el, "canon": canon, "layout": (tv, ti), "line": {
+        "n": len(points), "k": k, "from_points_s": build_s,
+        "launches": launches, "edge_set_equals_fused_build": same,
+        "directed_edges": el.n_edges, "canonical_edges": canon.n_edges,
+        "canonical_s": canon_s, "to_topk_s": to_topk_s,
+        "padded_degree": tv.shape[1],
+        # what the round loop holds on the card: f32 weights, int64 ids
+        "layout_device_bytes": tv.shape[0] * tv.shape[1] * (4 + 8)}}
+
+
+def run_solve_graph(blobs, topk_default) -> dict:
+    """Edge-list input: the blobs' top-k graph on ``graph_affinity``
+    (against the port's own CPU run and, at 20,000 blobs, the numpy
+    oracle), ``graph_affinity`` from points, the edges on ``dense_topk``
+    (against the default solve with the same preference), and the default
+    top-k solve with ``preseed="graph"`` (against ``build="reference"``).
+    Returns the ``topk_build`` launches of each path that builds."""
+    from repro_torch.graph import affinity
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solver import RawBackendResult, finalize_raw, solve
+
+    n = blobs.shape[0]
+    paths = {}
+    g = graph_layout(blobs, K_GRAPH)
+    paths["EdgeList.from_points"] = g["line"]["launches"]["topk_build"]
+    emit({"phase": "solve_graph", "layout": "blobs", **g["line"]})
+    el = g["el"]
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve(el, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reads, launches = affinity.host_reads, launch_counts()
+    emit({"phase": "solve_graph", "backend": res.backend, "levels":
+          res.levels, "wall_s": wall, "rounds": res.n_sweeps,
+          "host_reads": reads, "converged": res.converged,
+          "trace": res.trace.tolist(), "n_clusters": res.n_clusters.tolist(),
+          "launches": launches})
+    check(res.backend == "graph_affinity",
+          f"solve(EdgeList) chose {res.backend}")
+    check(reads == res.n_sweeps and not any(launches.values()),
+          f"graph_affinity: {reads} host reads for {res.n_sweeps} rounds, "
+          f"launches {launches}")
+    tv, ti = g["layout"]
+    vals, idx = (torch.from_numpy(a).to(DEVICE) for a in (tv, ti))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    affinity.run_graph_affinity(vals, idx, levels=res.levels)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    del vals, idx
+    t0 = time.perf_counter()
+    hist, r, conv, trace = affinity.run_graph_affinity(
+        torch.from_numpy(tv), torch.from_numpy(ti), levels=res.levels)
+    cpu_s = time.perf_counter() - t0
+    cpu = finalize_raw(RawBackendResult(
+        exemplars=hist, n_sweeps=r, converged=conv, trace=trace[:r]), n,
+        "graph_affinity")
+    same = (np.array_equal(res.exemplars, cpu.exemplars)
+            and np.array_equal(res.labels, cpu.labels)
+            and np.array_equal(res.trace, cpu.trace)
+            and res.n_sweeps == cpu.n_sweeps
+            and res.converged == cpu.converged)
+    emit({"phase": "solve_graph", "compare": "card vs CPU, same layout",
+          "card_round_loop_s": card_s, "cpu_round_loop_s": cpu_s,
+          "labels_rounds_trace_equal": same})
+    check(same, "graph_affinity on the card differs from the CPU")
+    del g, hist
+
+    small, _ = gaussian_blobs_n(N_ORACLE)
+    o = graph_layout(small, K_GRAPH)
+    paths["EdgeList.from_points (20,000)"] = \
+        o["line"]["launches"]["topk_build"]
+    tv, ti = o["layout"]
+    hist, r, conv, trace = affinity.run_graph_affinity(
+        torch.from_numpy(tv).to(DEVICE), torch.from_numpy(ti).to(DEVICE),
+        levels=3)
+    snaps, rounds = boruvka_oracle(o["canon"])
+    # the backend may spend one more round, relabeling nothing
+    snaps = [np.arange(N_ORACLE)] * 3 + snaps + \
+        [snaps[-1]] * max(r - rounds, 0)
+    same = bool(rounds <= r <= rounds + 1 and conv and all(
+        np.array_equal(hist[l].cpu().numpy(), snaps[len(snaps) - 3 + l])
+        for l in range(3)) and trace[rounds:r].sum() == 0)
+    emit({"phase": "solve_graph", "compare": "card vs numpy oracle",
+          "n": N_ORACLE, "rounds": r, "oracle_rounds": rounds,
+          "converged": conv, "labels_equal": same,
+          "n_clusters": int((hist[-1].cpu().numpy()
+                             == np.arange(N_ORACLE)).sum())})
+    check(same, "graph_affinity differs from the numpy oracle")
+    del o
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    pts = solve(blobs, backend="graph_affinity", device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    paths["graph_affinity from points"] = launches["topk_build"]
+    emit({"phase": "solve_graph", "backend": "graph_affinity",
+          "input": "points", "wall_s": wall, "rounds": pts.n_sweeps,
+          "n_clusters": pts.n_clusters.tolist(), "launches": launches,
+          "equals_edge_list_solve": bool(
+              np.array_equal(pts.exemplars, res.exemplars))})
+    check(launches["topk_build"] == 1,
+          f"graph_affinity from points: launches {launches}")
+    check(np.array_equal(pts.exemplars, res.exemplars)
+          and np.array_equal(pts.trace, res.trace),
+          "graph_affinity from points differs from the edge-list solve")
+    del pts, res
+
+    # the edges natively on dense_topk, and the default solve on the same
+    # edge set with the same preference (the edges' median, as a scalar)
+    pref = float(el.edge_preferences("median")[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    nat = solve(el, backend="dense_topk", device=DEVICE, keep_state=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    kk = nat.state.idx.shape[1]
+    same_pref = solve(blobs, device=DEVICE, preference=pref,
+                      keep_state=True)
+    same_layout = (torch.equal(nat.state.idx, same_pref.state.idx)
+                   and torch.equal(nat.state.hap.s, same_pref.state.hap.s))
+    same = (np.array_equal(nat.exemplars, same_pref.exemplars)
+            and np.array_equal(nat.trace, same_pref.trace))
+    default_same = bool(np.array_equal(nat.exemplars,
+                                       topk_default.exemplars))
+    emit({"phase": "solve_graph", "backend": "dense_topk", "input":
+          "EdgeList (native)", "wall_s": wall, "kk": kk,
+          "state_bytes": 3 * nat.levels * n * kk * 4,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "n_clusters": nat.n_clusters.tolist(), "launches": launches,
+          "compare": {
+              "same edges and preference (median of the edges, "
+              f"{pref!r})": {"layout_equal": same_layout,
+                             "decisions_equal": same},
+              "default solve (sampled median)": {
+                  "decisions_equal": default_same,
+                  "why": "the default solve's preference is the median "
+                         "of a 2,048-point dense subsample, the edge "
+                         "list's the median of its stored weights; the "
+                         "self-slot layout is the same"}}})
+    check(not any(launches.values()),
+          f"dense_topk on native edges launched {launches}")
+    check(same_layout and same,
+          "dense_topk: native edges and the default build with the same "
+          "preference gave other decisions")
+    del nat, same_pref, el
+
+    times = {}
+    out = {}
+    for build in ("auto", "reference"):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out[build] = solve(blobs, preseed="graph", build=build,
+                           device=DEVICE)
+        torch.cuda.synchronize()
+        times[build] = time.perf_counter() - t0
+        if build == "auto":
+            launches = launch_counts()
+            reads = affinity.host_reads
+    paths["dense_topk preseed"] = launches["topk_build"]
+    same = (np.array_equal(out["auto"].exemplars, out["reference"].exemplars)
+            and np.array_equal(out["auto"].trace, out["reference"].trace))
+    emit({"phase": "solve_graph", "backend": out["auto"].backend,
+          "preseed": "graph", "wall_s": times["auto"],
+          "reference_build_wall_s": times["reference"],
+          "preseed_host_reads": reads,
+          "n_clusters": out["auto"].n_clusters.tolist(),
+          "plain_n_clusters": topk_default.n_clusters.tolist(),
+          "launches": launches, "decisions_equal_reference_build": same})
+    check(out["auto"].backend == "dense_topk"
+          and launches["topk_build"] == 1,
+          f"preseed solve: {out['auto'].backend}, launches {launches}")
+    check(same, "preseed: fused and reference builds gave other decisions")
+    return paths
+
+
+def gaussian_blobs_n(n):
+    from repro_torch.data import gaussian_blobs
+    return gaussian_blobs(n=n, k=16, seed=0, spread=0.5)
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def run_solve_checkpoint(blobs, coarsen_res) -> dict:
+    """The default ``dense_topk`` solve of the blobs under both stops, run
+    plain, checkpointed every CKPT_EVERY sweeps, crashed at the second
+    save and resumed, and resumed from a copy of the crashed directory:
+    state, decisions and trace bit-equal across the four. Then coarsen
+    on 1,000,000 points crashed mid-local and after the global save, each
+    resumed to the uninterrupted solve's decisions. Returns the
+    ``topk_build`` launches of each path."""
+    import shutil
+
+    from repro_torch import convert
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import faultinject
+    from repro_torch.solver import solve
+
+    base = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    save_ms = []
+    save = CheckpointManager.save
+
+    def timed_save(self, step, tree):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(self, step, tree)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def run(label, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(blobs, device=DEVICE, keep_state=True, **kw)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        return res
+
+    CheckpointManager.save = timed_save
+    paths = {}
+    try:
+        for stop in ("fixed", "converged"):
+            walls, save_ms[:] = {}, []
+            a, b, c = (base / f"{stop}_{d}" for d in "abc")
+            runs = {"plain": run("plain", stop=stop)}
+            reset_launch_counts()
+            runs["checkpointed"] = run("checkpointed", stop=stop,
+                                       checkpoint_every=CKPT_EVERY,
+                                       checkpoint_dir=str(a))
+            launches = launch_counts()
+            paths[f"dense_topk checkpointed ({stop})"] = \
+                launches["topk_build"]
+            check(launches["topk_build"] == 1,
+                  f"checkpointed dense_topk launches {launches}")
+            step_bytes = dir_bytes(a / f"step_{runs['plain'].n_sweeps:010d}")
+            shutil.rmtree(a)
+            inj = faultinject.FaultInjector().add(
+                faultinject.Rule("solver.sweep", nth=1))
+            crashed = False
+            t0 = time.perf_counter()
+            try:
+                with faultinject.active(inj):
+                    run("crashed", stop=stop, checkpoint_every=CKPT_EVERY,
+                        checkpoint_dir=str(b))
+            except faultinject.InjectedFault:
+                crashed = True
+            walls["crashed"] = time.perf_counter() - t0
+            check(crashed, "the injected fault did not fire")
+            shutil.copytree(b, c)
+            t0 = time.perf_counter()
+            carry = convert.carry_from_checkpoint(str(b), DEVICE)
+            torch.cuda.synchronize()
+            resume_ms = (time.perf_counter() - t0) * 1e3
+            resumed_at = carry[3]
+            del carry
+            runs["resumed"] = run("resumed", stop=stop,
+                                  checkpoint_every=CKPT_EVERY,
+                                  checkpoint_dir=str(b), resume_from=str(b))
+            runs["resumed from a copy"] = run("resumed from a copy",
+                                              stop=stop, resume_from=str(c))
+            shutil.rmtree(b)
+            shutil.rmtree(c)
+            ref = runs["plain"]
+            equal = {}
+            for name, r in runs.items():
+                equal[name] = (
+                    np.array_equal(r.exemplars, ref.exemplars)
+                    and np.array_equal(r.labels, ref.labels)
+                    and np.array_equal(r.trace, ref.trace)
+                    and r.n_sweeps == ref.n_sweeps
+                    and r.converged == ref.converged
+                    and all(torch.equal(p, q) for p, q
+                            in zip(r.state.hap, ref.state.hap)))
+            emit({"phase": "solve_checkpoint", "backend": ref.backend,
+                  "stop": stop, "n": blobs.shape[0], "every": CKPT_EVERY,
+                  "n_sweeps": ref.n_sweeps, "converged": ref.converged,
+                  "wall_s": walls, "save_ms": list(save_ms),
+                  "bytes_per_step": step_bytes, "resumed_at_sweep":
+                  resumed_at, "resume_ms": resume_ms,
+                  "bit_equal_to_plain": equal})
+            check(all(equal.values()),
+                  f"checkpointed runs differ from the plain run: {equal}")
+            del runs, ref
+    finally:
+        CheckpointManager.save = save
+
+    x, _ = gaussian_blobs_n(N_COARSEN)
+    for stage, rule in (("local", faultinject.Rule(
+            "solver.coarsen", nth=3, match={"stage": "local"})),
+            ("global", faultinject.Rule(
+                "solver.coarsen", match={"stage": "global"}))):
+        d = base / f"coarsen_{stage}"
+        kw = dict(device=DEVICE, checkpoint_every=COARSEN_CKPT_EVERY,
+                  checkpoint_dir=str(d))
+        inj = faultinject.FaultInjector().add(rule)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with faultinject.active(inj):
+                solve(x, **kw)
+            crashed = False
+        except faultinject.InjectedFault:
+            crashed = True
+        crash_s = time.perf_counter() - t0
+        crash_launches = launch_counts()
+        check(crashed, f"coarsen {stage}: the injected fault did not fire")
+        resumed = faultinject.FaultInjector()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with faultinject.active(resumed):
+            res = solve(x, resume_from=str(d), **kw)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        launches = launch_counts()
+        shutil.rmtree(d)
+        same = (np.array_equal(res.exemplars, coarsen_res.exemplars)
+                and np.array_equal(res.n_clusters, coarsen_res.n_clusters)
+                and res.n_sweeps == coarsen_res.n_sweeps)
+        built = crash_launches["topk_build"] + launches["topk_build"]
+        paths[f"coarsen crashed at {stage}, resumed"] = built
+        emit({"phase": "solve_checkpoint", "backend": res.backend,
+              "n": N_COARSEN, "crash_at": stage, "crash_wall_s": crash_s,
+              "resume_wall_s": resume_s,
+              "stage_boundaries": {"crashed_run": inj.hits("solver.coarsen"),
+                                   "resumed_run":
+                                       resumed.hits("solver.coarsen")},
+              "launches": {"crashed_run": crash_launches,
+                           "resumed_run": launches},
+              "decisions_equal_uninterrupted": same})
+        check(same, f"coarsen resumed after a {stage} crash differs")
+        # the global stage's build runs once: in the resumed run after a
+        # local crash, in the crashed run after a global one
+        check(built == 1, f"coarsen {stage}: topk_build launched {built}")
+    shutil.rmtree(base, ignore_errors=True)
+    return paths
 
 
 # ---------------------------------------------------------------- attention
@@ -1107,14 +1546,21 @@ def main() -> int:
     summary["topk_build"] = run_topk_kernel(
         blobs, image_to_points(mandrill_like_image(512, 512)))
     launches = run_solve(pixels)                    # dense_fused path
-    launches["topk_build"] = run_solve_topk(blobs)["topk_build"]
+    topk_launches, topk_res = run_solve_topk(blobs)
+    launches["topk_build"] = topk_launches["topk_build"]
     summary["flash_attention"] = run_attention()
     launches["flash_attention"] = summary["flash_attention"].pop("launches")
     emit({"phase": "launches", "launches": launches})
     run_solve_twostage(blobs,
                        image_to_points(mandrill_like_image(512, 512)))
     run_solve_streaming(blobs)
-    run_solve_coarsen()
+    coarsen_res = run_solve_coarsen()
+    paths = {"dense_topk (default solve)": launches["topk_build"]}
+    paths.update(run_solve_graph(blobs, topk_res))
+    del topk_res
+    paths.update(run_solve_checkpoint(blobs, coarsen_res))
+    emit({"phase": "launches", "topk_build_by_path": paths})
+    check(all(paths.values()), f"a path launched no topk_build: {paths}")
     if args.profile:
         profile_all(pixels, blobs)
 
@@ -1129,6 +1575,8 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{fn_line}",
             "launches": launches[name], **summary[name]})
+        if name == "topk_build":
+            kernels[-1]["launches_by_path"] = paths
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

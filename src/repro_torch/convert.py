@@ -5,6 +5,14 @@ six ``HAPState`` tensors (s, r, a, tau, phi, c), and for ``dense_topk``
 also the (N, kk) index map of the compressed layout (``TopKState``). The
 reference's state crosses as numpy arrays (``np.asarray`` of each field),
 so this module imports neither package's framework beyond torch.
+
+State also crosses on disk. ``repro_torch.checkpoint`` writes and reads
+the reference's checkpoint format (``arrays.npz`` + ``manifest.json`` with
+jax's key-path strings, ``step_{:010d}`` directories, the
+``solve_meta.json`` sidecar), so a checkpointed ``dense_topk`` or
+``coarsen`` run of either package resumes in the other
+(``SolveConfig.resume_from``). ``carry_from_checkpoint`` reads the newest
+sweep checkpoint of such a directory as the port's loop carry.
 """
 from __future__ import annotations
 
@@ -13,7 +21,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.hap import HAPState
+from repro_torch.solver import checkpointing
 from repro_torch.solver.topk import TopKState
 
 
@@ -46,3 +56,15 @@ def topk_state_to_numpy(state: TopKState) -> TopKState:
     """The port's ``TopKState`` -> the same fields as numpy arrays."""
     return TopKState(hap_state_to_numpy(state.hap),
                      state.idx.detach().cpu().numpy())
+
+
+def carry_from_checkpoint(directory: str, device="cpu"):
+    """The newest ``step_*`` checkpoint of a checkpointed ``dense_topk``
+    run (written by either package) -> the port's loop carry ``(HAPState,
+    e_prev, stable, it, trace)``: the state and ``e_prev`` as tensors on
+    ``device``, ``stable`` and ``it`` as ints, ``trace`` a numpy array."""
+    hit = CheckpointManager(directory, async_save=False).restore_latest(
+        checkpointing._carry_like())
+    if hit is None:
+        raise ValueError(f"{directory!r} holds no step_* checkpoints")
+    return checkpointing.carry_from_tree(hit[1], device)

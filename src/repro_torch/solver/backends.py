@@ -12,13 +12,20 @@ dense_topk         §3 Jacobi schedule on top-k-per-row sparse
 sharded_streaming  two-tier shard-local AP, O((N/S)^2) peak state
 coarsen            kd-partition -> batched local dense solves -> global
                    exemplar solve; the N=1e7-on-one-host route
+graph_affinity     Borůvka min-edge/contract affinity clustering over
+                   an EdgeList (or the built top-k graph); O(N*k) per
+                   round, ~log N rounds
 
-The reference's other backends (graph_affinity, mr1d_stats,
-mr1d_transpose, mr2d) come with later slices.
+The reference's distributed backends (mr1d_stats, mr1d_transpose, mr2d)
+come with a later slice (``ROADMAP.md`` queue A.7).
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from repro_torch.core.streaming import streaming_hap
+from repro_torch.graph.edges import EdgeList
 from repro_torch.solver import dense, topk
 from repro_torch.solver.config import SolveConfig
 from repro_torch.solver.registry import BackendSpec, register_backend
@@ -58,24 +65,42 @@ register_backend(BackendSpec(
 def _topk_run(data, cfg: SolveConfig) -> RawBackendResult:
     """Compressed-layout Jacobi sweeps; O(L*N*k) state instead of
     O(L*N^2). Takes raw points (the top-k build; the N x N matrix is never
-    built) or an (L, N, N) similarity stack (row-wise compression); the
-    engine refuses edge-list input until the graph slice."""
-    if cfg.checkpoint_every > 0 or cfg.resume_from:
-        raise NotImplementedError(
-            "checkpoint/resume of dense_topk comes with the fault-tolerance "
-            "slice (ROADMAP.md queue A.5)")
-    n = data.shape[1] if data.ndim == 3 else data.shape[0]
-    k = topk.resolve_k(cfg.k, n)
-    if data.ndim == 3:
-        s3k, idx = topk.compress_stack(data, k)
+    built), an (L, N, N) similarity stack (row-wise compression), or an
+    ``EdgeList`` (already the compressed layout — dedup + pad, never
+    densify). ``checkpoint_every``/``resume_from`` run the sweeps in
+    checkpointed segments (``solver.checkpointing``)."""
+    if isinstance(data, EdgeList):
+        el = data.without_self_loops().deduplicated()
+        n = el.n_nodes
+        # an edge list brings its own sparsity: keep every stored edge
+        # unless cfg.k asks for a tighter (weight desc, dst asc) cut
+        k = (topk.resolve_k(cfg.k, n) if cfg.k is not None
+             else max(1, min(el.max_degree, n - 1)))
+        vals, idx_off = el.to_topk(k)
+        pref = el.edge_preferences(
+            cfg.preference if cfg.preference is not None else "median",
+            seed=cfg.seed)
+        device = torch.device(cfg.device or "cuda")
+        s_rows, idx = topk._with_self_slot(
+            *(torch.from_numpy(a).to(device) for a in (vals, idx_off, pref)))
+        s3k = s_rows.expand(cfg.levels, *s_rows.shape).contiguous()
+    elif data.ndim == 3:
+        s3k, idx = topk.compress_stack(data, topk.resolve_k(cfg.k,
+                                                             data.shape[1]))
     else:
         s3k, idx = topk.build_from_points(
-            data, k, cfg.levels, metric=cfg.metric,
-            preference=cfg.preference, seed=cfg.seed, config=cfg)
-    state, e, n_sweeps, conv, trace = topk.run_topk(
-        s3k, idx, max_iterations=cfg.max_iterations, damping=cfg.damping,
-        kappa=cfg.kappa, s_mode=cfg.s_mode, stop=cfg.stop,
-        patience=cfg.patience)
+            data, topk.resolve_k(cfg.k, data.shape[0]), cfg.levels,
+            metric=cfg.metric, preference=cfg.preference, seed=cfg.seed,
+            config=cfg)
+    if cfg.checkpoint_every > 0 or cfg.resume_from:
+        from repro_torch.solver import checkpointing
+        state, e, n_sweeps, conv, trace = \
+            checkpointing.run_topk_checkpointed(s3k, idx, cfg)
+    else:
+        state, e, n_sweeps, conv, trace = topk.run_topk(
+            s3k, idx, max_iterations=cfg.max_iterations, damping=cfg.damping,
+            kappa=cfg.kappa, s_mode=cfg.s_mode, stop=cfg.stop,
+            patience=cfg.patience)
     return RawBackendResult(
         exemplars=e, n_sweeps=n_sweeps,
         converged=bool(conv) if cfg.stop == "converged" else None,
@@ -84,9 +109,47 @@ def _topk_run(data, cfg: SolveConfig) -> RawBackendResult:
 
 register_backend(BackendSpec(
     name="dense_topk", run=_topk_run, accepts_points=True,
-    supports_early_stop=True,
+    accepts_edges=True, supports_early_stop=True,
     doc="top-k-per-row sparse similarities; O(L*N*k) state, exact at "
         "k=N-1"))
+
+
+def _graph_run(data, cfg: SolveConfig) -> RawBackendResult:
+    """Borůvka-style affinity clustering (``repro_torch.graph.affinity``).
+    Takes an ``EdgeList`` natively; points go through the top-k build
+    first (the fused kernel on the card), a similarity stack through row
+    compression of level 0 — in every case the directed top-k graph is
+    canonicalized (self-loops dropped, symmetrized, deduplicated) on the
+    host, then contracted on ``cfg.device``."""
+    from repro_torch.graph import affinity
+    from repro_torch.kernels.topk_similarity import topk_from_dense
+
+    if isinstance(data, EdgeList):
+        el = data
+    elif data.ndim == 3:
+        vals, idx = topk_from_dense(data[0], topk.resolve_k(cfg.k,
+                                                            data.shape[-1]))
+        el = EdgeList.from_topk(vals.cpu().numpy(), idx.cpu().numpy())
+    else:
+        el = EdgeList.from_points(
+            data, topk.resolve_k(cfg.k, data.shape[0]), config=cfg)
+    el = el.canonical()
+    vals, idx = el.to_topk()
+    device = torch.device(cfg.device or "cuda")
+    hist, r, conv, trace = affinity.run_graph_affinity(
+        torch.from_numpy(vals).to(device), torch.from_numpy(idx).to(device),
+        levels=cfg.levels, max_rounds=cfg.graph_rounds,
+        target=cfg.graph_target_clusters or 1)
+    return RawBackendResult(
+        exemplars=hist, n_sweeps=r, converged=bool(conv),
+        trace=np.asarray(trace)[:r], state=None)
+
+
+register_backend(BackendSpec(
+    name="graph_affinity", run=_graph_run, accepts_points=True,
+    accepts_edges=True, supports_early_stop=True,
+    doc="Borůvka min-edge/contract affinity clustering over an edge "
+        "list; O(N*k) per round, ~log N rounds"))
 
 
 def _streaming_run(x, cfg: SolveConfig) -> RawBackendResult:

@@ -22,17 +22,26 @@ exemplar (level 0 = its global exemplar, level l = that exemplar's level-l
 exemplar). With a single partition (N <= partition_size) the local solve
 *is* the dense oracle and the global stage is skipped.
 
+Checkpoint/resume (``checkpoint_every``/``checkpoint_dir``/``resume_from``)
+keeps per-stage artifacts, as the reference does: the kd partition is
+deterministic, so only its products are saved — the local exemplar/mass
+prefix every ``checkpoint_every`` batch groups, and the global solution,
+so a crash in the broadcast-assign stage resumes after the global solve.
+
 Where it differs from the reference: past ``PREF_EXACT_N`` exemplars the
-global preference is the port's sampled estimate (``ROADMAP.md`` C3), and
-checkpoint/resume comes with the fault-tolerance slice.
+global preference is the port's sampled estimate (``ROADMAP.md`` C3).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from repro_torch.core.assignments import canonicalize_levels
 from repro_torch.core.streaming import assign_nearest_exemplar
+from repro_torch.runtime import faultinject
+from repro_torch.solver import checkpointing as ckp
 from repro_torch.solver.compiled import (
     BatchedDenseSolver, config_static_key, slice_request,
 )
@@ -148,10 +157,6 @@ def run_coarsen(x, cfg: SolveConfig) -> RawBackendResult:
     from repro_torch.solver.engine import solve
 
     check_coarsen_config(cfg)
-    if cfg.checkpoint_every > 0 or cfg.resume_from:
-        raise NotImplementedError(
-            "checkpoint/resume of coarsen comes with the fault-tolerance "
-            "slice (ROADMAP.md queue A.5)")
     xt = x.float() if isinstance(x, torch.Tensor) else \
         torch.from_numpy(np.asarray(x, np.float32))
     device = xt.device
@@ -160,6 +165,33 @@ def run_coarsen(x, cfg: SolveConfig) -> RawBackendResult:
     n, d = x_np.shape
     if n < 2:
         return _trivial(n, cfg.levels)
+
+    # ---- checkpoint/resume plumbing: the kd partition is deterministic,
+    # so stage artifacts only need the *products* (exemplar prefix, then
+    # the global solution); everything else is recomputed on resume.
+    ckpt_every = cfg.checkpoint_every
+    ckpt_dir = cfg.checkpoint_dir if ckpt_every > 0 else None
+    local_art = global_art = None
+    if ckpt_dir or cfg.resume_from:
+        meta = ckp.coarsen_meta(n, d, cfg)
+        if cfg.resume_from:
+            ckp.check_meta(cfg.resume_from, meta)
+            local_art = ckp.load_stage(
+                cfg.resume_from, "local",
+                {"ex_idx": 0, "masses": 0, "groups_done": 0,
+                 "local_sweeps": 0, "local_conv": 0})
+            global_art = ckp.load_stage(
+                cfg.resume_from, "global",
+                {"exemplars": 0, "n_sweeps": 0, "converged": 0})
+        if ckpt_dir:
+            if not cfg.resume_from or os.path.abspath(cfg.resume_from) \
+                    != os.path.abspath(ckpt_dir):
+                ckp.reset_dir(ckpt_dir)
+            ckp.write_meta(ckpt_dir, meta)
+        # the sub-solves (batched locals, the global stage) must not
+        # inherit the checkpoint knobs: they'd collide on the same dir
+        cfg = cfg.replace(checkpoint_every=0, checkpoint_dir=None,
+                          resume_from=None)
 
     cells = kd_cells(x_np, cfg.partition_size)
     last_run.clear()
@@ -190,7 +222,26 @@ def run_coarsen(x, cfg: SolveConfig) -> RawBackendResult:
     ex_idx: list[np.ndarray] = []      # global point index per exemplar
     masses: list[np.ndarray] = []      # points each exemplar speaks for
     local_sweeps, local_converged = 0, True
-    for lo in range(0, len(multi), batch):
+    n_groups = (len(multi) + batch - 1) // batch
+    groups_done = 0
+    if local_art is not None:
+        ex_idx.append(np.asarray(local_art["ex_idx"]))
+        masses.append(np.asarray(local_art["masses"]))
+        groups_done = int(local_art["groups_done"])
+        local_sweeps = int(local_art["local_sweeps"])
+        local_converged = bool(local_art["local_conv"])
+
+    def _save_local(done: int) -> None:
+        ckp.save_stage(ckpt_dir, "local", {
+            "ex_idx": np.concatenate(ex_idx) if ex_idx
+            else np.zeros((0,), np.int64),
+            "masses": np.concatenate(masses) if masses
+            else np.zeros((0,), np.int64),
+            "groups_done": np.int64(done),
+            "local_sweeps": np.int64(local_sweeps),
+            "local_conv": np.int64(local_converged)})
+
+    for lo in range(groups_done * batch, len(multi), batch):
         group = multi[lo:lo + batch]
         pts = np.zeros((batch, bucket_n, d), np.float32)
         n_real = np.full((batch,), 2, np.int32)     # inert filler slots
@@ -207,6 +258,12 @@ def run_coarsen(x, cfg: SolveConfig) -> RawBackendResult:
             local_sweeps = max(local_sweeps, rbr.n_sweeps)
             if rbr.converged is False:
                 local_converged = False
+        groups_done += 1
+        if ckpt_dir and (groups_done % ckpt_every == 0
+                         or groups_done == n_groups):
+            _save_local(groups_done)
+            faultinject.fire("solver.coarsen", stage="local",
+                             group=groups_done)
     for c in singles:                   # a lone point is its own exemplar
         ex_idx.append(c)
         masses.append(np.ones((1,), np.int64))
@@ -225,17 +282,32 @@ def run_coarsen(x, cfg: SolveConfig) -> RawBackendResult:
                                 converged=conv, trace=None)
 
     # ---- global solve over the exemplar union, mass-derived preferences
-    if n_ex <= cfg.coarsen_global_dense_n:
-        gcfg = cfg.replace(backend="dense_parallel", k=None)
+    if global_art is not None:
+        # stage-3 resume: the global solution is already on disk
+        g_exemplars = np.asarray(global_art["exemplars"])
+        g_sweeps = int(global_art["n_sweeps"])
+        g_conv_i = int(global_art["converged"])
+        g_converged = None if g_conv_i < 0 else bool(g_conv_i)
     else:
-        gcfg = cfg.replace(backend="dense_topk",
-                           k=min(cfg.coarsen_global_k, n_ex - 1))
-    gcfg = gcfg.replace(
-        input_kind="points",
-        preference=_global_preference(ex_pts, masses, cfg))
-    last_run["global_backend"] = gcfg.backend
-    gres = solve(ex_pts, gcfg)
-    g_exemplars = np.asarray(gres.exemplars)
+        if n_ex <= cfg.coarsen_global_dense_n:
+            gcfg = cfg.replace(backend="dense_parallel", k=None)
+        else:
+            gcfg = cfg.replace(backend="dense_topk",
+                               k=min(cfg.coarsen_global_k, n_ex - 1))
+        gcfg = gcfg.replace(
+            input_kind="points",
+            preference=_global_preference(ex_pts, masses, cfg))
+        last_run["global_backend"] = gcfg.backend
+        gres = solve(ex_pts, gcfg)
+        g_exemplars = np.asarray(gres.exemplars)
+        g_sweeps, g_converged = gres.n_sweeps, gres.converged
+        if ckpt_dir:
+            ckp.save_stage(ckpt_dir, "global", {
+                "exemplars": g_exemplars.astype(np.int64),
+                "n_sweeps": np.int64(g_sweeps),
+                "converged": np.int64(
+                    -1 if g_converged is None else int(g_converged))})
+            faultinject.fire("solver.coarsen", stage="global")
 
     # ---- broadcast-assign: nearest global exemplar, row+column chunked
     g_uniq = np.unique(g_exemplars[0])
@@ -250,9 +322,9 @@ def run_coarsen(x, cfg: SolveConfig) -> RawBackendResult:
     # exemplar — the two coarsen tiers spliced into the HAP hierarchy
     e_out = ex_idx[g_exemplars[:, g_uniq[labels]]].astype(np.int32)
 
-    n_sweeps = max(local_sweeps, gres.n_sweeps)
+    n_sweeps = max(local_sweeps, g_sweeps)
     conv = None
     if cfg.stop == "converged":
-        conv = bool(local_converged and bool(gres.converged))
+        conv = bool(local_converged and bool(g_converged))
     return RawBackendResult(exemplars=e_out, n_sweeps=n_sweeps,
                             converged=conv, trace=None)

@@ -9,7 +9,8 @@
   ``max_iterations`` sweeps and keeps the per-sweep change counts on the
   device, read once at the end; ``stop="converged"`` reads the change
   count on the host once per sweep (one device sync per sweep) to decide
-  whether to stop.
+  whether to stop. Its segmented mode runs the same loop between
+  checkpoints.
 * ``run_dense`` — what the dense backends call.
 """
 from __future__ import annotations
@@ -58,38 +59,69 @@ def _make_sweep(order: str, damping: float, kappa: float, s_mode: str):
     raise ValueError(f"unknown dense order {order!r}")
 
 
+def initial_carry(init, levels: int, n: int, max_iterations: int):
+    """The loop carry ``(state, e_prev, stable, it, trace)`` before the
+    first sweep: no exemplar yet (-1), no sweep done, the trace all -1."""
+    e0 = torch.full((levels, n), -1, dtype=torch.int32, device=init.s.device)
+    return init, e0, 0, 0, np.full(max_iterations, -1, np.int32)
+
+
 def drive_sweeps(init, sweep, assign, levels: int, n: int, *,
-                 max_iterations: int, stop: str, patience: int):
+                 max_iterations: int, stop: str, patience: int,
+                 segmented: bool = False, carry=None, until=None):
     """The stopping-rule loop every single-device backend shares.
 
     ``sweep(state, it) -> state`` and ``assign(state) -> (L, N) int32``
     are backend-specific. Returns ``(state, exemplars, n_sweeps, converged,
     trace)``; ``trace`` is a numpy array of length ``max_iterations`` with
     -1 past ``n_sweeps``.
+
+    ``stop="fixed"`` keeps the per-sweep change counts on the device and
+    reads them once, at the end; ``stop="converged"`` reads the count once
+    per sweep to decide whether to stop.
+
+    Checkpointed callers (``solver.checkpointing``) set ``segmented=True``
+    to run one *segment*: ``carry`` is the raw carry ``(state, e_prev,
+    stable, it, trace)`` of the previous segment (None: start fresh;
+    ``stable`` and ``it`` are ints, ``trace`` a numpy array), ``until`` the
+    sweep index to pause at, and the raw carry comes back. A plain run is
+    one segment to ``max_iterations``: the plain, the checkpointed and a
+    resumed run execute the same sweeps on the same state, so resume is
+    bit-exact by construction, as in the reference.
     """
-    device = init.s.device
-    e = torch.full((levels, n), -1, dtype=torch.int32, device=device)
-    state = init
+    if carry is None:
+        carry = initial_carry(init, levels, n, max_iterations)
+    state, e, stable, it, trace = carry
+    trace = trace.copy()
+    until = max_iterations if until is None else until
     if stop == "fixed":
-        trace = torch.empty(max_iterations, dtype=torch.int32, device=device)
-        for it in range(max_iterations):
+        # the patience exit is off; the stable count is kept for the
+        # carry (the reference's segments keep it too)
+        start = it
+        changes = torch.empty(until - start, dtype=torch.int64,
+                              device=e.device)
+        for it in range(start, until):
             state = sweep(state, it)
             e_new = assign(state)
-            trace[it] = (e_new != e).sum()
+            changes[it - start] = (e_new != e).sum()
             e = e_new
-        return state, e, max_iterations, False, trace.cpu().numpy()
-
-    trace = np.full(max_iterations, -1, np.int32)
-    stable = it = 0
-    while it < max_iterations and stable < patience:
-        state = sweep(state, it)
-        e_new = assign(state)
-        changed = int((e_new != e).sum())    # host sync, once per sweep
-        stable = stable + 1 if changed == 0 else 0
-        trace[it] = changed
-        e = e_new
-        it += 1
-    return state, e, it, stable >= patience, trace
+        it = until
+        counts = changes.cpu().numpy()       # the one host read
+        trace[start:it] = counts
+        for changed in counts:
+            stable = stable + 1 if changed == 0 else 0
+    else:
+        while it < until and stable < patience:
+            state = sweep(state, it)
+            e_new = assign(state)
+            changed = int((e_new != e).sum())    # host sync, once per sweep
+            stable = stable + 1 if changed == 0 else 0
+            trace[it] = changed
+            e = e_new
+            it += 1
+    if segmented:
+        return state, e, stable, it, trace
+    return state, e, it, stop == "converged" and stable >= patience, trace
 
 
 def run_dense(s3: torch.Tensor, *, order: str, max_iterations: int,

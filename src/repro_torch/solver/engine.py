@@ -5,13 +5,15 @@
     res = solve(points, device="cpu")          # plain PyTorch on the CPU
     res = solve(points, stop="converged")      # run until assignments stable
 
-The engine normalizes the input ((N, d) points, an (N, N) similarity or an
-(L, N, N) stack), selects a backend, builds the similarity (with the CUDA
-similarity kernel on the fused path) and the preferences — or hands the
-points to a backend that builds its own (``dense_topk``,
-``sharded_streaming``, ``coarsen``) — and finishes the backend's raw
-result. Unlike the reference it has no degrade chain: a
-kernel that fails to build or launch raises.
+The engine normalizes the input ((N, d) points, an (N, N) similarity, an
+(L, N, N) stack, or a ``repro_torch.graph.EdgeList``), selects a backend,
+builds the similarity (with the CUDA similarity kernel on the fused path)
+and the preferences — or hands the points to a backend that builds its
+own (``dense_topk``, ``graph_affinity``, ``sharded_streaming``,
+``coarsen``), the edge list to a backend that takes one natively
+(``graph_affinity``, ``dense_topk``) or its densified matrix to the rest —
+and finishes the backend's raw result. Unlike the reference it has no
+degrade chain: a kernel that fails to build or launch raises.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.core.preferences import make_preferences
 from repro_torch.core.similarity import (
     pairwise_similarity, set_preferences, stack_levels,
 )
+from repro_torch.graph.edges import EdgeList
 from repro_torch.solver.config import CHECKPOINT_BACKENDS, SolveConfig
 from repro_torch.solver.registry import auto_select, get_backend
 from repro_torch.solver.result import RawBackendResult, SolveResult
@@ -111,12 +114,11 @@ def _resolve_device(cfg: SolveConfig) -> torch.device:
 
 
 def _normalize_input(data, cfg: SolveConfig, device: torch.device):
-    """-> (points, similarity stack, original N) — exactly one of the
-    first two is not None; both are float32 tensors on ``device``."""
-    if all(hasattr(data, f) for f in ("src", "dst", "weight", "n_nodes")):
-        raise NotImplementedError(
-            "edge-list input comes with the graph slice (ROADMAP.md queue "
-            "A.4); pass (N, d) points or a similarity matrix")
+    """-> (points, similarity stack, edge list, original N) — exactly one
+    of the first three is not None; points and stacks are float32 tensors
+    on ``device``, an edge list stays on the host."""
+    if isinstance(data, EdgeList):
+        return None, None, data, data.n_nodes
     arr = data if isinstance(data, torch.Tensor) else np.asarray(data)
     shape = tuple(arr.shape)
 
@@ -130,7 +132,7 @@ def _normalize_input(data, cfg: SolveConfig, device: torch.device):
             raise ValueError(f"3-D input must be (L, N, N); got {shape}")
         if cfg.input_kind == "points":
             raise ValueError("input_kind='points' requires a 2-D (N, d) array")
-        return None, to_device(arr), shape[1]
+        return None, to_device(arr), None, shape[1]
     if arr.ndim != 2:
         raise ValueError(f"expected 2-D or 3-D input; got ndim={arr.ndim}")
     kind = cfg.input_kind
@@ -139,8 +141,21 @@ def _normalize_input(data, cfg: SolveConfig, device: torch.device):
     if kind == "similarity":
         if shape[0] != shape[1]:
             raise ValueError(f"similarity matrix must be square; {shape}")
-        return None, stack_levels(to_device(arr), cfg.levels), shape[0]
-    return to_device(arr), None, shape[0]
+        return None, stack_levels(to_device(arr), cfg.levels), None, shape[0]
+    return to_device(arr), None, None, shape[0]
+
+
+def _densify_edges(el: EdgeList, cfg: SolveConfig, device: torch.device):
+    """EdgeList -> (L, N, N) stack for backends without native edge
+    support: missing entries take the inert fill (strictly below every
+    stored weight), the diagonal takes ``cfg.preference`` resolved over
+    the stored edge weights (``None`` means "median" here, as in the
+    reference)."""
+    pref = cfg.preference if cfg.preference is not None else "median"
+    s = set_preferences(
+        torch.from_numpy(el.to_dense()).to(device),
+        torch.from_numpy(el.edge_preferences(pref, seed=cfg.seed)).to(device))
+    return stack_levels(s, cfg.levels)
 
 
 def _build_similarity(x: torch.Tensor, cfg: SolveConfig, backend: str):
@@ -151,11 +166,22 @@ def _build_similarity(x: torch.Tensor, cfg: SolveConfig, backend: str):
     else:
         s = pairwise_similarity(x, metric=cfg.metric)
     pref = cfg.preference
-    if pref is None:
+    if pref is None and cfg.preseed != "graph":
         return stack_levels(s, cfg.levels)
     if isinstance(pref, str):
         gen = torch.Generator().manual_seed(cfg.seed)
         pref = make_preferences(s, pref, generator=gen)
+    if cfg.preseed == "graph":
+        # seed the preference vector from a cheap Borůvka pass over the
+        # matrix's top-k graph (the matrix already exists, so compressing
+        # it costs no extra build)
+        from repro_torch.graph.affinity import preseed_preferences
+        from repro_torch.kernels.topk_similarity import topk_from_dense
+        from repro_torch.solver.topk import resolve_k
+        vals, idx = topk_from_dense(s, resolve_k(cfg.k, s.shape[0]))
+        pref = preseed_preferences(
+            vals, idx, 0.0 if pref is None else pref,
+            target=cfg.graph_target_clusters, max_rounds=cfg.graph_rounds)
     return stack_levels(set_preferences(s, pref), cfg.levels)
 
 
@@ -166,20 +192,24 @@ def solve(data, config: Optional[SolveConfig] = None,
 
     ``data``: (N, d) points, (N, N) similarity matrix (diagonal =
     preferences, caller-owned) or (L, N, N) per-level similarity stack, as
-    a numpy array or a tensor. Keyword overrides patch ``config`` field by
-    field: ``solve(x, backend="dense_fused", max_iterations=80)``.
+    a numpy array or a tensor, or a ``repro_torch.graph.EdgeList`` (routed
+    natively to edge-capable backends, densified with inert fill for the
+    rest). Keyword overrides patch ``config`` field by field:
+    ``solve(x, backend="dense_fused", max_iterations=80)``.
     """
     cfg = config or SolveConfig()
     if overrides:
         cfg = cfg.replace(**overrides)
     device = _resolve_device(cfg)
+    cfg = cfg.replace(device=str(device))
 
-    x, s3, n = _normalize_input(data, cfg, device)
+    x, s3, el, n = _normalize_input(data, cfg, device)
     validate_config(cfg, n)
 
     backend = cfg.backend
     if backend == "auto":
-        backend = route(n, x is not None, device, cfg)
+        backend = route(n, x is not None, device, cfg,
+                        has_edges=el is not None)
     spec = get_backend(backend)
 
     if cfg.checkpoint_every > 0 or cfg.resume_from:
@@ -189,41 +219,55 @@ def solve(data, config: Optional[SolveConfig] = None,
                 f"(the long-running paths), not backend {backend!r}; drop "
                 "checkpoint_every/resume_from or pick a supported backend")
     if spec.needs_points and x is None:
+        hint = (" — an EdgeList carries no point coordinates"
+                if el is not None else "")
         raise ValueError(
             f"backend {backend!r} clusters raw points (it never builds the "
-            "global similarity matrix); pass an (N, d) array")
+            f"global similarity matrix); pass an (N, d) array{hint}")
     if cfg.stop == "converged" and not spec.supports_early_stop:
         raise ValueError(
             f"backend {backend!r} runs a fixed distributed sweep schedule "
             "and does not support stop='converged'; use stop='fixed' or a "
             "dense backend")
     if cfg.preseed == "graph":
+        if backend == "graph_affinity":
+            raise ValueError(
+                "preseed='graph' seeds a HAP backend's preferences with a "
+                "graph pass; backend='graph_affinity' IS the graph pass — "
+                "drop one of the two")
         if x is None:
             raise ValueError(
                 "preseed='graph' re-derives preferences from the top-k "
                 "graph the engine builds; it requires (N, d) point input")
-        raise NotImplementedError(
-            "preseed='graph' needs the graph and top-k modules, which are "
-            "not ported yet")
+        if spec.needs_points:
+            raise ValueError(
+                f"backend {backend!r} does not consume a per-point "
+                "preference array, which is what preseed='graph' "
+                "produces; use a dense or dense_topk backend")
 
-    if spec.needs_points or (spec.accepts_points and x is not None):
-        # points backends (sharded_streaming, coarsen, dense_topk) build
-        # their own similarities, and the dense N x N matrix is never
-        # built here
-        return _finalize(spec.run(x, cfg), n, backend)
-    if s3 is None:
-        s3 = _build_similarity(x, cfg, backend)
-    return _finalize(spec.run(s3, cfg), n, backend)
+    if el is not None and spec.accepts_edges:
+        raw = spec.run(el, cfg)
+    elif spec.needs_points or (spec.accepts_points and x is not None):
+        # points backends (sharded_streaming, coarsen, dense_topk,
+        # graph_affinity) build their own similarities, and the dense
+        # N x N matrix is never built here
+        raw = spec.run(x, cfg)
+    else:
+        if s3 is None:
+            s3 = (_densify_edges(el, cfg, device) if el is not None
+                  else _build_similarity(x, cfg, backend))
+        raw = spec.run(s3, cfg)
+    return _finalize(raw, n, backend)
 
 
 def route(n: int, has_points: bool, device: torch.device,
-          cfg: SolveConfig) -> str:
+          cfg: SolveConfig, has_edges: bool = False) -> str:
     """The backend ``backend="auto"`` runs. ``solve`` places everything on
     the one device ``cfg.device`` names, so the routing counts one device
     whatever the host has: the multi-device backends and the sharded
     build and sweep are not ported yet (``ROADMAP.md`` queue A.7)."""
     return auto_select(n, cfg.levels, n_devices=1, has_points=has_points,
-                       platform=device.type, cfg=cfg)
+                       platform=device.type, cfg=cfg, has_edges=has_edges)
 
 
 def finalize_raw(raw: RawBackendResult, n: int, backend: str) -> SolveResult:

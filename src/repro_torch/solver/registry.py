@@ -3,9 +3,9 @@
 
 A backend is a function ``run(data, cfg) -> RawBackendResult`` plus the
 capability flags the engine dispatches on. The dense family,
-``dense_topk``, ``sharded_streaming`` and ``coarsen`` are ported so far;
-``get_backend`` raises ``KeyError`` for any other name, listing the
-registered ones.
+``dense_topk``, ``sharded_streaming``, ``coarsen`` and ``graph_affinity``
+are ported so far; ``get_backend`` raises ``KeyError`` for any other name,
+listing the registered ones.
 """
 from __future__ import annotations
 
@@ -23,9 +23,10 @@ from repro_torch.solver.result import RawBackendResult
 class BackendSpec:
     name: str
     #: run(data, cfg) -> RawBackendResult, on an (L, N, N) float32
-    #: similarity stack, or on (N, d) points when ``needs_points`` or
-    #: ``accepts_points``. (The reference's mesh flags arrive with the
-    #: backends that need them.)
+    #: similarity stack, on (N, d) points when ``needs_points`` or
+    #: ``accepts_points``, or on an ``EdgeList`` when ``accepts_edges``.
+    #: (The reference's mesh flags arrive with the backends that need
+    #: them.)
     run: Callable[..., RawBackendResult]
     #: backend consumes raw points, not a similarity tensor
     needs_points: bool = False
@@ -33,8 +34,9 @@ class BackendSpec:
     #: points; the engine hands it points when it has them, so the dense
     #: (N, N) matrix is never built on its account
     accepts_points: bool = False
-    #: backend consumes an edge list natively (the reference's
-    #: ``repro.graph.EdgeList``; no edge-list input is ported yet)
+    #: backend consumes a ``repro_torch.graph.EdgeList`` natively
+    #: (compressed edge layout, no densification); backends without this
+    #: flag get graph input through the engine's densify routing
     accepts_edges: bool = False
     #: backend honors cfg.stop == "converged"
     supports_early_stop: bool = False

@@ -130,7 +130,8 @@ def build_from_points(x: torch.Tensor, k: int, levels: int, *,
                       metric: str = "neg_sqeuclidean", preference="median",
                       seed: int = 0, config: Optional[SolveConfig] = None):
     """Points -> ((L, N, kk) value stack, (N, kk) index map) without ever
-    materializing the N x N matrix; ``config.build`` picks the build."""
+    materializing the N x N matrix; ``config.build`` picks the build, and
+    ``config.preseed="graph"`` seeds the preferences from the edges."""
     x = x.float()
     n = x.shape[0]
     cfg = (config or SolveConfig()).replace(metric=metric)
@@ -143,6 +144,13 @@ def build_from_points(x: torch.Tensor, k: int, levels: int, *,
     else:
         pref = topk_preferences(vals, preference,
                                 generator=torch.Generator().manual_seed(seed))
+    if cfg.preseed == "graph":
+        # seed from a Borůvka pass over the edges just built — the graph
+        # pass reuses (vals, idx), so preseeding never doubles the build
+        from repro_torch.graph.affinity import preseed_preferences
+        pref = preseed_preferences(
+            vals, idx, pref, target=cfg.graph_target_clusters,
+            max_rounds=cfg.graph_rounds)
     s_rows, idx_full = _with_self_slot(vals, idx, pref)
     return s_rows.expand(levels, *s_rows.shape).contiguous(), idx_full
 

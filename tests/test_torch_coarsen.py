@@ -11,6 +11,8 @@ handle has no reference test of its own: it is held against the
 reference's handle on the same arrays and against the port's unpadded
 dense solves.
 """
+import os
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -166,10 +168,17 @@ def test_registered_spec_needs_points():
 
 
 def test_checkpointing_waits_for_the_fault_tolerance_slice(tmp_path):
-    x, _ = _blobs(64, seed=5)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        solve(x, backend="coarsen", checkpoint_every=1,
-              checkpoint_dir=str(tmp_path), device="cpu")
+    """Pinned the refusal of a checkpointed coarsen solve until the
+    fault-tolerance slice ported it; now the checkpointed solve equals
+    the plain one and leaves the reference's stage artifacts
+    (``tests/test_torch_checkpoint.py`` crashes and resumes it)."""
+    x, _ = _blobs(300, seed=5)
+    kw = dict(backend="coarsen", partition_size=64, device="cpu")
+    plain = solve(x, **kw)
+    ckpt = solve(x, checkpoint_every=1, checkpoint_dir=str(tmp_path), **kw)
+    _same(ckpt, plain)
+    assert sorted(os.listdir(tmp_path)) == ["global", "local",
+                                            "solve_meta.json"]
 
 
 def test_auto_select_names_are_registered():

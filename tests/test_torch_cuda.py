@@ -47,7 +47,9 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.kernels.topk_similarity import (  # noqa: E402
     topk_similarity, topk_similarity_twostage,
 )
-from repro_torch.solver import solve  # noqa: E402
+from repro_torch.graph import EdgeList, affinity  # noqa: E402
+from repro_torch.runtime import faultinject  # noqa: E402
+from repro_torch.solver import SolveConfig, solve  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -261,6 +263,67 @@ def test_topk_solve_goes_through_the_kernel(dev):
     ref = solve(x, max_iterations=20, build="reference")
     np.testing.assert_array_equal(fused.exemplars, ref.exemplars)
     np.testing.assert_array_equal(fused.trace, ref.trace)
+
+
+def _dup_heavy_edges(rng, n, weights=(1.0, 2.0, 3.0)):
+    """A canonical random graph whose weights come from a 3-value set:
+    nearly every selection is a tie."""
+    m = 6 * n
+    src = rng.integers(0, n, m).astype(np.int32)
+    dst = rng.integers(0, n, m).astype(np.int32)
+    w = rng.choice(np.asarray(weights, np.float32), m)
+    return EdgeList(src, dst, w, n).canonical()
+
+
+@pytest.mark.parametrize("n,target,levels", [
+    (120, 1, 3), (2000, 1, 2), (5000, 40, 1), (30000, 1, 3)])
+def test_boruvka_on_cuda_equals_the_cpu(dev, n, target, levels):
+    vals, idx = _dup_heavy_edges(_gen(n), n).to_topk()
+    got = affinity.run_graph_affinity(
+        torch.from_numpy(vals).to(dev), torch.from_numpy(idx).to(dev),
+        levels=levels, target=target)
+    reads = affinity.host_reads
+    want = affinity.run_graph_affinity(
+        torch.from_numpy(vals), torch.from_numpy(idx), levels=levels,
+        target=target)
+    assert got[0].is_cuda
+    assert torch.equal(got[0].cpu(), want[0])
+    assert got[1:3] == want[1:3] and reads == got[1]
+    np.testing.assert_array_equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("kind", ["random", "integer", "duplicate"])
+def test_edge_list_from_points_on_cuda_equals_the_scan(dev, kind):
+    x = _topk_points(_gen(12), 3000, 3, kind)
+    reset_launch_counts()
+    el = EdgeList.from_points(torch.from_numpy(x).to(dev), 16)
+    assert launch_counts()["topk_build"] == 1
+    vals, idx = topk_similarity(torch.from_numpy(x).to(dev), 16)
+    want = EdgeList.from_topk(vals.cpu().numpy(), idx.cpu().numpy())
+    again = EdgeList.from_points(x, 16)             # numpy: on "cuda"
+    for f in ("src", "dst", "weight"):
+        np.testing.assert_array_equal(getattr(el, f), getattr(want, f))
+        np.testing.assert_array_equal(getattr(again, f), getattr(want, f))
+
+
+@pytest.mark.parametrize("stop,levels", [("fixed", 3), ("converged", 1)])
+def test_topk_crash_resume_on_cuda_is_bit_exact(dev, tmp_path, stop,
+                                                levels):
+    x = _gen(13).integers(0, 256, (9000, 3)).astype(np.float32)
+    cfg = SolveConfig(backend="dense_topk", stop=stop, levels=levels,
+                      max_iterations=30, checkpoint_every=7,
+                      checkpoint_dir=str(tmp_path / "ck"), keep_state=True)
+    plain = solve(x, cfg.replace(checkpoint_every=0, checkpoint_dir=None))
+    inj = faultinject.FaultInjector().add(
+        faultinject.Rule("solver.sweep", nth=1))
+    with faultinject.active(inj), pytest.raises(faultinject.InjectedFault):
+        solve(x, cfg)
+    res = solve(x, cfg.replace(resume_from=cfg.checkpoint_dir))
+    np.testing.assert_array_equal(res.exemplars, plain.exemplars)
+    np.testing.assert_array_equal(res.trace, plain.trace)
+    assert (res.n_sweeps, res.converged) == (plain.n_sweeps, plain.converged)
+    for got, want in zip(res.state.hap, plain.state.hap):
+        assert got.is_cuda and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128, 256])

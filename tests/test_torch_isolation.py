@@ -35,7 +35,11 @@ def test_importing_the_solver_loads_no_jax():
             "repro_torch.convert, repro_torch.data, "
             "repro_torch.solver.backends, repro_torch.kernels.topk_build, "
             "repro_torch.core.streaming, repro_torch.solver.compiled, "
-            "repro_torch.solver.coarsen;"
+            "repro_torch.solver.coarsen, repro_torch.graph, "
+            "repro_torch.graph.edges, repro_torch.graph.affinity, "
+            "repro_torch.checkpoint, repro_torch.checkpoint.ckpt, "
+            "repro_torch.runtime, repro_torch.runtime.faultinject, "
+            "repro_torch.solver.checkpointing;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "assert not bad, bad")

@@ -158,10 +158,26 @@ def test_solve_without_device_needs_cuda(points, monkeypatch):
 def test_unported_backend_raises_key_error(points):
     with pytest.raises(KeyError, match="registered: coarsen, dense_fused, "
                                        "dense_parallel, dense_sequential, "
-                                       "dense_topk, sharded_streaming"):
-        solve(points, backend="graph_affinity", device="cpu")
+                                       "dense_topk, graph_affinity, "
+                                       "sharded_streaming"):
+        solve(points, backend="mr1d_stats", device="cpu")
 
 
 def test_graph_preseed_is_not_ported(points):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        solve(points, preseed="graph", device="cpu")
+    """Pinned the refusal of ``preseed="graph"`` until the graph slice
+    ported it; now the default solve with it seeds the same similarity
+    stack as the reference, bit for bit, on integer-valued points (where
+    both packages build the same S; ``tests/test_torch_graph.py`` holds
+    the preseed on every path)."""
+    from repro.solver import engine as j_engine
+    from repro_torch.solver import engine
+
+    x = np.round(points * 4).astype(np.float32)
+    got = engine._build_similarity(
+        torch.from_numpy(x), SolveConfig(preseed="graph", device="cpu"),
+        "dense_parallel")
+    want = j_engine._build_similarity(x, JConfig(preseed="graph"),
+                                      "dense_parallel")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    res = solve(x, preseed="graph", device="cpu")
+    assert res.backend == "dense_parallel" and res.exemplars.shape == (3, 96)

@@ -490,13 +490,28 @@ def test_unported_builds_raise_and_sharded_runs_its_inner_build(blobs96):
 
 
 def test_checkpoint_and_edge_list_input_are_not_ported(blobs96, tmp_path):
-    with pytest.raises(NotImplementedError, match="fault-tolerance"):
-        solve(blobs96, backend="dense_topk", checkpoint_every=2,
-              checkpoint_dir=str(tmp_path), device="cpu")
-    from repro.graph.edges import EdgeList
-    el = EdgeList.from_points(blobs96, 8)
-    with pytest.raises(NotImplementedError, match="graph slice"):
-        solve(el, device="cpu")
+    """Pinned the refusals of a checkpointed dense_topk solve and of
+    edge-list input until the graph and fault-tolerance slices ported
+    them; now the checkpointed solve equals the plain one, and the
+    reference's top-k edge list, handed to the port, routes to
+    ``graph_affinity`` with the reference's decisions
+    (``tests/test_torch_checkpoint.py`` and ``tests/test_torch_graph.py``
+    hold both paths)."""
+    kw = dict(backend="dense_topk", k=8, max_iterations=12, device="cpu")
+    plain = solve(blobs96, **kw)
+    ckpt = solve(blobs96, checkpoint_every=5, checkpoint_dir=str(tmp_path),
+                 **kw)
+    np.testing.assert_array_equal(ckpt.exemplars, plain.exemplars)
+    np.testing.assert_array_equal(ckpt.trace, plain.trace)
+    from repro.graph.edges import EdgeList as JEdgeList
+    from repro_torch.graph import EdgeList
+    jel = JEdgeList.from_points(blobs96, 8)
+    got = solve(EdgeList(jel.src, jel.dst, jel.weight, jel.n_nodes),
+                device="cpu")
+    want = j_solve(jel)
+    assert got.backend == want.backend == "graph_affinity"
+    np.testing.assert_array_equal(got.exemplars, want.exemplars)
+    np.testing.assert_array_equal(got.trace, want.trace)
 
 
 # ------------------------------------------------------------- routing
