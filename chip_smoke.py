@@ -94,6 +94,23 @@ solve_checkpoint the default ``dense_topk`` solve of the blobs under both
           after the global save, each resumed to the uninterrupted
           ``solve_coarsen`` decisions; ``topk_build``'s launches on every
           path that builds, each read around its own run
+serve     the clustering service (``repro_torch.serve.cluster``) on the
+          card: ``bench_serve.py``'s FULL load sweep (buckets 128, 256,
+          512 x 2, batch 8, 2 levels, <= 100 sweeps; 120 Poisson requests
+          at 5, 20, 50 and 100 rps, half on one stream): offered and
+          achieved rps, p50/p95/p99, the first request's latency, micro-
+          batches, riders a batch, fast-path share, no cache miss after
+          warmup, no kernel launch on the batched path; where a batch's
+          time goes (padding, the batched launch, finishing) and the fast
+          path's assignment on the host against the card; the ceiling
+          bucket (4,096, 2, 8): ms a launch, peak memory; 16 requests on
+          the card against the same service on the CPU (decisions, and
+          how far the traces drift); overflow of 20,000 blobs to
+          ``dense_topk`` and of 250,000 to ``coarsen``, one ``topk_build``
+          launch each, decisions equal to the direct solves;
+          ``bench_serve.py``'s CHAOS_FULL (4 workers on the card, 3 kills
+          at ``serve.launch``): every future resolves; and
+          ``python -m repro_torch.launch.cluster_serve --smoke``
 profile   only with ``--profile``: ``torch.profiler`` traces of a 10-sweep
           ``dense_fused`` solve, a 10-sweep ``dense_topk`` solve and the
           two-stage build of the 200,000 blobs (neg_euclidean), device
@@ -109,6 +126,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1200,6 +1218,387 @@ def run_solve_checkpoint(blobs, coarsen_res) -> dict:
     return paths
 
 
+# ------------------------------------------------------------ serve phase
+# benchmarks/bench_serve.py's FULL and CHAOS_FULL tiers
+SERVE_BUCKETS = [(128, 2), (256, 2), (512, 2)]
+SERVE_BATCH = 8
+SERVE_LOADS = [5.0, 20.0, 50.0, 100.0]
+SERVE_REQUESTS = 120
+SERVE_STREAM_FRAC = 0.5
+CEILING = (4096, 2, 8)        # the largest bucket max_bucket_n lets batch
+CEILING_REQUESTS = 16
+N_SERVE_TOPK = 20_000         # overflow -> dense_topk (k = 64)
+N_SERVE_COARSEN = 250_000     # overflow -> coarsen (past 200,000)
+CHAOS = {"buckets": [(64, 2)], "batch": 4, "rps": 40.0, "requests": 80,
+         "max_iterations": 60, "workers": 4, "kills": 3,
+         "cooldown_s": 0.2, "deadline_ms": 2000.0}
+
+
+def serve_config(**kw):
+    from repro_torch.solver import SolveConfig
+    base = dict(stop="converged", max_iterations=100, damping=0.6,
+                levels=2, preference="median", seed=0)
+    return SolveConfig(**{**base, **kw})
+
+
+def serve_responses_equal(a, b) -> tuple[bool, bool, int, int]:
+    """(decisions equal, traces equal, points with another finest-level
+    exemplar, points) for two lists of responses to the same requests.
+    Decisions: path, bucket, stream generation, labels, exemplars, sweep
+    count and flag."""
+    same, traces, differ, total = True, True, 0, 0
+    for x, y in zip(a, b):
+        total += len(x.labels)
+        same &= (x.path, x.bucket, x.generation) == (y.path, y.bucket,
+                                                      y.generation)
+        same &= np.array_equal(x.labels, y.labels)
+        if x.solve is not None:
+            differ += int((x.solve.exemplars[0]
+                           != y.solve.exemplars[0]).sum())
+            same &= (np.array_equal(x.solve.exemplars, y.solve.exemplars)
+                     and x.solve.n_sweeps == y.solve.n_sweeps
+                     and x.solve.converged == y.solve.converged)
+            traces &= np.array_equal(x.solve.trace, y.solve.trace)
+    return same, traces, differ, total
+
+
+def serve_breakdown(svc) -> list[dict]:
+    """Where a full batch's time goes, per bucket: host padding, the
+    batched launch (the handle's ``run``, which reads its results back),
+    and the host's slicing and finishing of each rider."""
+    from repro_torch.serve.cluster import Bucket
+    from repro_torch.serve.cluster.loadgen import synthetic_requests
+    from repro_torch.solver import finalize_raw
+    from repro_torch.solver.compiled import slice_request
+
+    out = []
+    for n, d in SERVE_BUCKETS:
+        bucket = Bucket(n, d, SERVE_BATCH)
+        reqs = synthetic_requests(SERVE_BATCH, [(n, d)], seed=n)
+        solver = svc.workers[0].cache.lookup(bucket, svc.config)
+        rows = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pts = np.zeros((bucket.batch, n, d), np.float32)
+            n_real = np.array([len(r) for r in reqs], np.int32)
+            for i, r in enumerate(reqs):
+                pts[i] = svc.router.pad_points(r, bucket)
+            t1 = time.perf_counter()
+            raw = solver.run(pts, n_real)
+            t2 = time.perf_counter()
+            for i, r in enumerate(reqs):
+                rbr, _ = slice_request(raw, i, len(r), svc.config.stop)
+                finalize_raw(rbr, len(r), "serve_batched")
+            t3 = time.perf_counter()
+            rows.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3,
+                         int(raw.n_sweeps.max())))
+        pad, run, finish, sweeps = rows[-1]
+        out.append({"bucket": bucket.key, "pad_ms": pad, "launch_ms": run,
+                    "finish_ms": finish, "max_sweeps": sweeps,
+                    "launch_ms_runs": [r[1] for r in rows]})
+    return out
+
+
+def fast_path_latency() -> dict:
+    """The stream fast path's assignment (``assign_nearest_exemplar``) on
+    the host, as the service runs it, against the same call on the card
+    with the copies there and back, at a stream's shapes."""
+    from repro_torch.core.streaming import assign_nearest_exemplar
+
+    rng = np.random.default_rng(0)
+    out = {}
+    for n, k in ((64, 8), (256, 16), (512, 32)):
+        x = rng.normal(size=(n, 2)).astype(np.float32)
+        ex = rng.normal(size=(k, 2)).astype(np.float32)
+
+        def host():
+            lab, best = assign_nearest_exemplar(x, ex)
+            return lab.numpy(), best.numpy()
+
+        def card():
+            lab, best = assign_nearest_exemplar(
+                torch.from_numpy(x).to(DEVICE), torch.from_numpy(ex).to(
+                    DEVICE))
+            return lab.cpu().numpy(), best.cpu().numpy()
+
+        res = {}
+        for name, fn in (("host_us", host), ("card_us", card)):
+            got = fn()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            res[name] = (time.perf_counter() - t0) / 200 * 1e6
+            res[name.replace("_us", "_labels")] = got[0]
+        check(np.array_equal(res.pop("host_labels"), res.pop("card_labels")),
+              f"fast path: host and card labels differ at {n}x{k}")
+        out[f"{n}x{k}"] = res
+    return out
+
+
+def run_serve(smi: str) -> dict:
+    """The clustering service (``repro_torch.serve.cluster``) on the card:
+    the load sweep, the ceiling bucket, decisions against the CPU, the two
+    overflow routes, worker failures and the ``cluster_serve`` driver.
+    Returns the ``topk_build`` launches of the overflow paths."""
+    from repro_torch.data import gaussian_blobs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import faultinject
+    from repro_torch.runtime.faultinject import FaultInjector, Rule
+    from repro_torch.serve.cluster import ClusterService
+    from repro_torch.serve.cluster.loadgen import run_load, synthetic_requests
+    from repro_torch.solver import solve
+
+    t_phase = time.perf_counter()
+    cfg = serve_config()
+    buckets = [(n, d, SERVE_BATCH) for n, d in SERVE_BUCKETS]
+    svc = ClusterService(config=cfg, buckets=buckets)
+    warm = svc.warmup()
+    check(warm["misses"] == 3 * 4, f"serve warmup: {warm}")
+    emit({"phase": "serve", "step": "warmup", "card": smi,
+          "devices": [str(w.device) for w in svc.workers], **warm})
+
+    # -- the load sweep (bench_serve.py FULL)
+    reset_launch_counts()
+    rows = []
+    for load in SERVE_LOADS:
+        before = svc.snapshot()
+        reqs = synthetic_requests(SERVE_REQUESTS, SERVE_BUCKETS,
+                                  seed=int(load))
+        res = run_load(svc, reqs, rps=load, stream="bench",
+                       stream_frac=SERVE_STREAM_FRAC, seed=0,
+                       timeout=120.0)
+        after = svc.snapshot()
+        batches = after["micro_batches"] - before["micro_batches"]
+        riders = ((after["full_solves"] - before["full_solves"])
+                  - (after["overflow_solves"] - before["overflow_solves"]))
+        row = {"offered_rps": res.offered_rps,
+               "achieved_rps": res.achieved_rps, "p50_ms": res.p50_ms,
+               "p95_ms": res.p95_ms, "p99_ms": res.p99_ms,
+               "mean_ms": res.mean_ms, "first_ms": res.first_ms,
+               "micro_batches": batches,
+               "mean_riders": riders / batches if batches else 0.0,
+               "fast_frac": res.fast_frac, "n_requests": res.n_requests,
+               "n_errors": res.n_errors, "duration_s": res.duration_s,
+               "cache_misses": after["cache"]["misses"]
+               - before["cache"]["misses"]}
+        rows.append(row)
+        emit({"phase": "serve", "step": "load", **row})
+        check(res.n_errors == 0, f"serve load {load}: {res.n_errors} errors")
+        check(row["cache_misses"] == 0,
+              f"serve load {load}: {row['cache_misses']} request-path "
+              "cache misses")
+    batched_launches = launch_counts()
+    est = {str(k): v for k, v in svc.workers[0]._est_s.items()}
+    emit({"phase": "serve", "step": "micro_batched_launches",
+          "launches": batched_launches, "launch_ewma_s": est})
+    check(sum(batched_launches.values()) == 0,
+          f"the micro-batched path launched kernels: {batched_launches}")
+    emit({"phase": "serve", "step": "breakdown",
+          "buckets": serve_breakdown(svc),
+          "fast_path": fast_path_latency()})
+
+    # -- the ceiling bucket
+    ceil = ClusterService(config=cfg, buckets=[CEILING], auto_bucket=False)
+    ceil.warmup()
+    reqs = synthetic_requests(CEILING_REQUESTS, [CEILING[:2]], seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    futs = [ceil.submit(x) for x in reqs]
+    ceil.drain()
+    wall = time.perf_counter() - t0
+    out = [f.result(timeout=600) for f in futs]
+    snap = ceil.snapshot()
+    emit({"phase": "serve", "step": "ceiling", "bucket": CEILING,
+          "requests": len(out), "micro_batches": snap["micro_batches"],
+          "wall_s": wall, "ms_per_launch": [r.solve_ms for r in out[::8]],
+          "n_sweeps": [int(r.solve.n_sweeps) for r in out],
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "state_bytes": 3 * 4 * CEILING[2] * cfg.levels * CEILING[0] ** 2})
+    check(all(r.path == "full" and r.bucket == CEILING for r in out),
+          "ceiling bucket: a request took another path")
+    del ceil, out, futs
+    torch.cuda.empty_cache()
+
+    # -- decisions on the card against the CPU
+    reqs = synthetic_requests(16, SERVE_BUCKETS, seed=7)
+    streams = ["cmp" if i % 4 == 0 else None for i in range(len(reqs))]
+    answers = {}
+    for device in (None, "cpu"):
+        s = ClusterService(config=serve_config(device=device),
+                           buckets=buckets)
+        s.warmup()
+        t0 = time.perf_counter()
+        futs = [s.submit(x, stream=st) for x, st in zip(reqs, streams)]
+        s.drain()
+        futs += [s.submit(x[: len(x) // 2], stream="cmp")
+                 for x in reqs[:4]]
+        s.drain()
+        answers[device or "cuda"] = ([f.result(timeout=600) for f in futs],
+                                     time.perf_counter() - t0)
+    same, traces, differ, total = serve_responses_equal(
+        answers["cuda"][0], answers["cpu"][0])
+    pairs = list(zip(answers["cuda"][0], answers["cpu"][0]))
+    gap = max((int(np.abs(a.solve.trace.astype(np.int64)
+                          - b.solve.trace).max(initial=0))
+               for a, b in pairs if a.solve is not None
+               and len(a.solve.trace) == len(b.solve.trace)), default=0)
+    emit({"phase": "serve", "step": "card_vs_cpu", "requests": len(reqs),
+          "responses": len(pairs), "decisions_equal": same,
+          "traces_equal": traces, "points_with_other_exemplar": differ,
+          "points": total,
+          "requests_with_other_decisions": sum(
+              not serve_responses_equal([a], [b])[0] for a, b in pairs),
+          "requests_with_other_trace": sum(
+              not serve_responses_equal([a], [b])[1] for a, b in pairs),
+          "largest_trace_gap": gap,
+          "card_s": answers["cuda"][1], "cpu_s": answers["cpu"][1]})
+    check(differ <= MAX_MISMATCH * total,
+          f"serve card vs cpu: {differ} of {total} points differ")
+
+    # -- overflow to dense_topk
+    paths = {}
+    x, _ = gaussian_blobs(n=N_SERVE_TOPK, k=16, seed=0, spread=0.5)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = svc.solve_sync(x, stream="big")
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    paths["serve overflow dense_topk"] = launches["topk_build"]
+    direct = solve(x, cfg.replace(backend="dense_topk", k=64,
+                                  input_kind="points"))
+    scan = solve(x, cfg.replace(backend="dense_topk", k=64,
+                                input_kind="points", build="reference"))
+    eq = {name: bool(np.array_equal(res.solve.exemplars, o.exemplars)
+                     and np.array_equal(res.solve.trace, o.trace)
+                     and res.solve.n_sweeps == o.n_sweeps)
+          for name, o in (("direct", direct), ("reference_build", scan))}
+    emit({"phase": "serve", "step": "overflow_dense_topk", "n": N_SERVE_TOPK,
+          "backend": res.solve.backend, "wall_s": wall,
+          "solve_ms": res.solve_ms, "n_sweeps": res.solve.n_sweeps,
+          "n_clusters": res.solve.n_clusters.tolist(),
+          "stream": svc.stream_info("big"), "launches": launches,
+          "decisions_equal": eq})
+    check(res.solve.backend == "dense_topk" and launches["topk_build"] == 1
+          and sum(launches.values()) == 1,
+          f"serve overflow dense_topk: {res.solve.backend}, {launches}")
+    check(all(eq.values()), f"serve overflow dense_topk differs: {eq}")
+
+    # -- overflow to coarsen
+    x, _ = gaussian_blobs(n=N_SERVE_COARSEN, k=16, seed=0, spread=0.5)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = svc.solve_sync(x)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    paths["serve overflow coarsen"] = launches["topk_build"]
+    from repro_torch.solver import coarsen
+    stats = dict(coarsen.last_run)
+    direct = solve(x, cfg.replace(backend="coarsen"))
+    same = bool(np.array_equal(res.solve.exemplars, direct.exemplars)
+                and res.solve.n_sweeps == direct.n_sweeps)
+    emit({"phase": "serve", "step": "overflow_coarsen", "n": N_SERVE_COARSEN,
+          "backend": res.solve.backend, "wall_s": wall, **stats,
+          "n_clusters": res.solve.n_clusters.tolist(), "launches": launches,
+          "decisions_equal_direct": same})
+    check(res.solve.backend == "coarsen"
+          and stats["global_backend"] == "dense_topk"
+          and launches["topk_build"] == 1 and sum(launches.values()) == 1,
+          f"serve overflow coarsen: {stats}, {launches}")
+    check(same, "serve overflow coarsen differs from the direct solve")
+    snap = svc.snapshot()
+    check(snap["overflow_solves"] == 2
+          and snap["overflow_coarsen_solves"] == 1,
+          f"serve overflow counters: {snap['overflow_solves']}, "
+          f"{snap['overflow_coarsen_solves']}")
+    del svc
+
+    # -- worker failures (bench_serve.py CHAOS_FULL), four workers, one card
+    chaos = ClusterService(
+        config=serve_config(max_iterations=CHAOS["max_iterations"]),
+        buckets=[(n, d, CHAOS["batch"]) for n, d in CHAOS["buckets"]],
+        auto_bucket=False, workers=CHAOS["workers"], max_wait_ms=1.0,
+        max_retries=3, worker_cooldown_s=CHAOS["cooldown_s"],
+        retry_backoff_ms=2.0)
+    chaos.warmup()
+
+    def load(seed):
+        return run_load(
+            chaos, synthetic_requests(CHAOS["requests"], CHAOS["buckets"],
+                                      seed=seed),
+            rps=CHAOS["rps"], seed=seed, deadline_ms=CHAOS["deadline_ms"],
+            timeout=120.0)
+
+    baseline = load(1)
+    inj = FaultInjector(seed=7).add(Rule(
+        "serve.launch", nth=0, times=CHAOS["kills"], match={"worker": 1}))
+    with faultinject.active(inj):
+        under = load(2)
+    recovered = load(3)
+    s = chaos.stats
+
+    def hard(r):                # neither a deadline miss nor a shed
+        return r.n_errors - r.n_deadline - r.n_shed
+
+    emit({"phase": "serve", "step": "chaos",
+          "p99_ms": [baseline.p99_ms, under.p99_ms, recovered.p99_ms],
+          "p50_ms": [baseline.p50_ms, under.p50_ms, recovered.p50_ms],
+          "errors": [baseline.n_errors, under.n_errors, recovered.n_errors],
+          "deadline_misses": [baseline.n_deadline, under.n_deadline,
+                              recovered.n_deadline],
+          "achieved_rps": [baseline.achieved_rps, under.achieved_rps,
+                           recovered.achieved_rps],
+          "requests": [baseline.n_requests, under.n_requests,
+                       recovered.n_requests],
+          "injected_faults": len(inj.events),
+          "worker_deaths": s.worker_deaths,
+          "retried_batches": s.retried_batches,
+          "requeued_requests": s.requeued_requests,
+          "resurrections": s.resurrections,
+          "devices": sorted({str(w.device) for w in chaos.workers})})
+    # every future resolved (run_load waits on each); a deadline miss is
+    # the service working as configured, any other error is a failure
+    check(hard(baseline) == hard(under) == hard(recovered) == 0,
+          "serve chaos: futures failed other than by their deadline")
+    # the same load on one worker: what the three extra threads add
+    solo = ClusterService(
+        config=serve_config(max_iterations=CHAOS["max_iterations"]),
+        buckets=[(n, d, CHAOS["batch"]) for n, d in CHAOS["buckets"]],
+        auto_bucket=False, max_wait_ms=1.0)
+    solo.warmup()
+    one = run_load(
+        solo, synthetic_requests(CHAOS["requests"], CHAOS["buckets"],
+                                 seed=1),
+        rps=CHAOS["rps"], seed=1, deadline_ms=CHAOS["deadline_ms"],
+        timeout=120.0)
+    emit({"phase": "serve", "step": "chaos_one_worker",
+          "p50_ms": one.p50_ms, "p99_ms": one.p99_ms,
+          "deadline_misses": one.n_deadline,
+          "achieved_rps": one.achieved_rps,
+          "micro_batches": solo.snapshot()["micro_batches"]})
+    check(hard(one) == 0, "serve one worker: futures failed")
+    check(len(inj.events) == CHAOS["kills"] and s.worker_deaths >= 1
+          and s.retried_batches >= 1,
+          f"serve chaos: {len(inj.events)} kills, {s.worker_deaths} "
+          f"deaths, {s.retried_batches} retried batches")
+    del chaos
+
+    # -- the driver
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.cluster_serve",
+         "--smoke"], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    emit({"phase": "serve", "step": "driver", "rc": proc.returncode,
+          "seconds": time.perf_counter() - t0,
+          "stdout": proc.stdout.strip().splitlines()[-4:],
+          "stderr": proc.stderr.strip().splitlines()[-3:]})
+    check(proc.returncode == 0, "cluster_serve --smoke failed")
+    emit({"phase": "serve", "step": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return paths
+
+
 # ---------------------------------------------------------------- attention
 MAX_BF16_DIFFER = 0.05   # share of bf16 outputs that may round a step apart
 
@@ -1559,6 +1958,7 @@ def main() -> int:
     paths.update(run_solve_graph(blobs, topk_res))
     del topk_res
     paths.update(run_solve_checkpoint(blobs, coarsen_res))
+    paths.update(run_serve(smi))
     emit({"phase": "launches", "topk_build_by_path": paths})
     check(all(paths.values()), f"a path launched no topk_build: {paths}")
     if args.profile:

@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple, Optional
@@ -65,6 +66,9 @@ class BuildInfo(NamedTuple):
 
 _lib: Optional[ctypes.CDLL] = None
 _info: Optional[BuildInfo] = None
+#: one loader at a time: the serving path's worker threads may all reach
+#: their first launch together
+_LIB_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -151,13 +155,14 @@ def build() -> BuildInfo:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib, _info
-    if _lib is None:
-        _info = build()
-        handle = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes, fn.restype = argtypes, restype
-        _lib = handle
+    with _LIB_LOCK:
+        if _lib is None:
+            _info = build()
+            handle = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes, fn.restype = argtypes, restype
+            _lib = handle
     return _lib
 
 

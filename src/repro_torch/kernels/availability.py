@@ -15,7 +15,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, check_operands, on_cpu, ref, stream_of
+from repro_torch.kernels import (
+    _build, check_operands, count_launch, on_cpu, ref, stream_of,
+)
 
 #: The plain PyTorch version.
 plain = ref.availability
@@ -32,7 +34,6 @@ def availability(r: torch.Tensor, c: torch.Tensor, phi: torch.Tensor,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """r, a_old (N, N); c, phi (N,) -> damped alpha (N, N), written into
     ``out`` when given."""
-    global launches
     if on_cpu("availability", r, c, phi, a_old,
               *(() if out is None else (out,))):
         res = plain(r, c, phi, a_old, lam)
@@ -51,7 +52,7 @@ def availability(r: torch.Tensor, c: torch.Tensor, phi: torch.Tensor,
             out.data_ptr(), scratch.data_ptr(), n, ctypes.c_float(lam),
             ctypes.c_float(1.0 - lam), stream_of(r))
     _build.check(err, "availability")
-    launches += 1
+    count_launch("availability")
     return out
 
 

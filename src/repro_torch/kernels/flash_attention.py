@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build, on_cpu, ref, stream_of
+from repro_torch.kernels import _build, count_launch, on_cpu, ref, stream_of
 
 launches = 0
 
@@ -77,7 +77,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q (BH, Sq, D); k, v (BH, Sk, D) -> (BH, Sq, D) in q's dtype:
     ``softmax(q k^T / sqrt(D), causal row >= col) v``."""
-    global launches
     _check_shapes(q, k, v)
     if on_cpu("flash_attention", q, k, v):
         return plain(q, k, v, causal)
@@ -101,7 +100,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k.shape[1], d, int(causal), int(q.dtype == torch.bfloat16),
             stream_of(q))
     _build.check(err, "flash_attention")
-    launches += 1
+    count_launch("flash_attention")
     return out
 
 

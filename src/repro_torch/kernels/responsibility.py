@@ -14,7 +14,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, check_operands, on_cpu, ref, stream_of
+from repro_torch.kernels import (
+    _build, check_operands, count_launch, on_cpu, ref, stream_of,
+)
 
 #: The plain PyTorch version.
 plain = ref.responsibility
@@ -27,7 +29,6 @@ def responsibility(s: torch.Tensor, a: torch.Tensor, tau: torch.Tensor,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """s, a, r_old (N, M); tau (N,) -> damped rho (N, M), written into
     ``out`` when given."""
-    global launches
     if on_cpu("responsibility", s, a, tau, r_old,
               *(() if out is None else (out,))):
         res = plain(s, a, tau, r_old, lam)
@@ -45,5 +46,5 @@ def responsibility(s: torch.Tensor, a: torch.Tensor, tau: torch.Tensor,
             out.data_ptr(), n, m, ctypes.c_float(lam),
             ctypes.c_float(1.0 - lam), stream_of(s))
     _build.check(err, "responsibility")
-    launches += 1
+    count_launch("responsibility")
     return out

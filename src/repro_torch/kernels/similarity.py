@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, check_operands, on_cpu, ref, stream_of
+from repro_torch.kernels import (
+    _build, check_operands, count_launch, on_cpu, ref, stream_of,
+)
 
 #: The plain PyTorch version (f32 accumulation, the reference's formula).
 plain = ref.neg_sqeuclidean
@@ -20,7 +22,6 @@ launches = 0
 
 def neg_sqeuclidean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """x (N, d), y (M, d) -> (N, M) negative squared distances."""
-    global launches
     if on_cpu("similarity", x, y):
         return plain(x, y)
     n, d = x.shape
@@ -32,7 +33,7 @@ def neg_sqeuclidean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             x.data_ptr(), y.data_ptr(), out.data_ptr(), n, m, d,
             stream_of(x))
     _build.check(err, "similarity")
-    launches += 1
+    count_launch("similarity")
     return out
 
 

@@ -23,7 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, check_operands, on_cpu, ref, stream_of
+from repro_torch.kernels import (
+    _build, check_operands, count_launch, on_cpu, ref, stream_of,
+)
 from repro_torch.kernels.topk_similarity import (
     _by_column, _check_k, _ordered_tile, scan_topk,
 )
@@ -53,7 +55,6 @@ def topk_similarity_fused(x: torch.Tensor, k: int):
     """(N, d) points -> (vals (N, k) f32, idx (N, k) i32): each row's k
     largest off-diagonal neg-sqeuclidean similarities, columns ascending,
     ties to the smaller column."""
-    global launches
     n, d = x.shape
     _check_k(k, n)
     if on_cpu("topk_build", x):
@@ -72,7 +73,7 @@ def topk_similarity_fused(x: torch.Tensor, k: int):
             x.data_ptr(), scratch.data_ptr(), vals.data_ptr(), idx.data_ptr(),
             n, d, k, stream_of(x))
     _build.check(err, "topk_build")
-    launches += 1
+    count_launch("topk_build")
     return _by_column(vals, idx)
 
 

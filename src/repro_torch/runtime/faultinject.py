@@ -20,11 +20,15 @@ The port's sites (grep for ``faultinject.fire``):
 =====================  =====================================================
 ``solver.sweep``       between checkpointed dense_topk sweep segments
 ``solver.coarsen``     after each coarsen stage/group checkpoint
+``serve.launch``       before a worker runs a micro-batch (context:
+                       ``worker``, ``bucket``) — a raise is a worker failure
+``serve.compile``      before a compile cache builds a handle on a miss
+                       (context: ``bucket``), warm-up and resurrection too
 =====================  =====================================================
 
 The reference's ``solver.backend`` and ``build.fused`` sites guard its
 degrade chains, which the port does not have (a kernel launches or
-raises), and its ``serve.*`` sites come with the serving slice.
+raises).
 
 The active injector also counts every ``fire`` hit per site (rules or
 not) — ``injector.hits(site)`` — which resume tests use to prove work

@@ -144,6 +144,7 @@ def _run_batched(s4: torch.Tensor, cfg: SolveConfig, order: str):
     stable = torch.zeros(b, dtype=torch.int32, device=device)
     its = torch.zeros(b, dtype=torch.int32, device=device)
     active = torch.ones(b, dtype=torch.bool, device=device)
+    rows = torch.arange(b, device=device)
     it = 0
     while bool(active.any()):                # host read, once per sweep
         new = sweep(state, it)
@@ -152,7 +153,10 @@ def _run_batched(s4: torch.Tensor, cfg: SolveConfig, order: str):
                         old) for nw, old in zip(new, state)))
         e_new = assign(state)
         changed = changes(e_new, e)
-        trace[active, its[active].long()] = changed[active]
+        # finished requests write their own entry back: no boolean mask,
+        # whose indexing would read the device from the host
+        col = its.clamp(max=t_max - 1).long()
+        trace[rows, col] = torch.where(active, changed, trace[rows, col])
         stable = torch.where(active, torch.where(changed == 0, stable + 1, 0),
                              stable)
         its = its + active.to(torch.int32)
@@ -163,20 +167,27 @@ def _run_batched(s4: torch.Tensor, cfg: SolveConfig, order: str):
 
 
 class BatchedDenseSolver:
-    """One handle: fixed (batch, n, d), fixed config statics, on the device
-    ``cfg.device`` names (None means "cuda").
+    """One handle: fixed (batch, n, d), fixed config statics, on one device.
 
-    ``compile()`` is the explicit warm-up point the reference has; ``run``
-    feeds padded host arrays through the two stages.
+    ``device`` pins the handle (the serving path's workers each pass their
+    own); it wins over ``cfg.device``, and with both None the handle runs
+    on "cuda". A CUDA device without a card raises here: nothing falls
+    back to the CPU. ``compile()`` is the explicit warm-up point the
+    reference has; ``run`` feeds padded host arrays through the two stages.
     """
 
-    def __init__(self, batch: int, n: int, d: int, cfg: SolveConfig):
+    def __init__(self, batch: int, n: int, d: int, cfg: SolveConfig,
+                 device=None):
         if n < 2:
             raise ValueError(f"bucket n must be >= 2 (got {n})")
         self.batch, self.n, self.d = int(batch), int(n), int(d)
         self.cfg = cfg
         self.order = batched_order(cfg.backend)
-        self.device = torch.device(cfg.device or "cuda")
+        self.device = torch.device(device or cfg.device or "cuda")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run the "
+                "batched handle on the CPU")
         self._compiled = False
 
     def _prepare(self, points: torch.Tensor, n_real: torch.Tensor):
@@ -198,10 +209,22 @@ class BatchedDenseSolver:
         return self._compiled
 
     def compile(self) -> "BatchedDenseSolver":
-        """Mark the handle ready. There is nothing to lower or compile in
-        eager PyTorch; the call keeps the reference's lifecycle, so a
-        service warms its handles before it takes requests."""
+        """Make the handle ready: the warm-up point of the reference's
+        lifecycle. Eager PyTorch has nothing to lower, but a shape's first
+        run pays one-time costs of its own (the device's lazily loaded
+        kernels, the allocator's first blocks), so ``compile()`` runs the
+        handle once, two sweeps of an inert batch (every slot a two-point
+        filler), and a service that warms its handles does not make its
+        first request pay them."""
         self._compiled = True
+        pts = torch.zeros((self.batch, self.n, self.d), device=self.device)
+        n_real = torch.full((self.batch,), 2, dtype=torch.int64,
+                            device=self.device)
+        s4, _ = self._prepare(pts, n_real)
+        _run_batched(s4, self.cfg.replace(
+            max_iterations=min(2, self.cfg.max_iterations)), self.order)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         return self
 
     # ------------------------------------------------------------- run

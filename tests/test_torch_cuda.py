@@ -439,3 +439,118 @@ def test_twostage_bit_identical_to_the_scan_on_cuda(dev, metric, kind):
         cpu = topk_similarity(x.cpu(), 16, metric=metric)
         assert torch.equal(got[0].cpu(), cpu[0])
         assert torch.equal(got[1].cpu(), cpu[1])
+
+
+# ------------------------------------------------------- the cluster service
+SERVE_KW = dict(stop="converged", max_iterations=80, damping=0.6, levels=2,
+                preference="median")
+
+
+def _serve_requests():
+    from repro_torch.data import gaussian_blobs
+    reqs = []
+    for i, n in enumerate((40, 64, 90, 128, 55, 120)):
+        x, _ = gaussian_blobs(n=n, k=4, seed=30 + i, spread=0.3, box=14.0)
+        reqs.append((x, "s" if i % 2 == 0 else None))
+    return reqs
+
+
+def _serve(device, reqs):
+    from repro_torch.serve.cluster import ClusterService
+    svc = ClusterService(config=SolveConfig(**SERVE_KW, device=device),
+                         buckets=[(64, 2, 4), (128, 2, 4)],
+                         auto_bucket=False)
+    svc.warmup()
+    futs = [svc.submit(x, stream=s) for x, s in reqs]
+    svc.drain()
+    futs += [svc.submit(x, stream=s) for x, s in reqs]   # the fast path
+    svc.drain()
+    return svc, [f.result(timeout=60) for f in futs]
+
+
+def test_service_on_cuda_decides_as_on_the_cpu(dev, record_property):
+    """A warmed service on the card answers a mixed batch (micro-batches
+    in two buckets, stream fast-path riders) with the decisions of the
+    same service on the CPU: labels, exemplars, sweep counts and flags;
+    its batched path launches no kernel. S's product runs in cuBLAS on
+    the card and in the CPU's BLAS there, which round differently, so the
+    intermediate sweeps' change counts (the trace) can differ where a
+    border point or an inert padding row flips; the trace's length and a
+    converged request's closing run of ``patience`` zeros are equal, and
+    the largest gap is recorded in the report."""
+    reqs = _serve_requests()
+    reset_launch_counts()
+    gpu, got = _serve(None, reqs)
+    assert sum(launch_counts().values()) == 0
+    assert {w.device.type for w in gpu.workers} == {"cuda"}
+    cpu, want = _serve("cpu", reqs)
+    assert gpu.snapshot()["cache"]["misses"] == 6     # warmup only
+    patience, gap = gpu.config.patience, 0
+    for g, w in zip(got, want):
+        assert (g.path, g.bucket, g.generation) == (w.path, w.bucket,
+                                                    w.generation)
+        np.testing.assert_array_equal(g.labels, w.labels)
+        if w.solve is not None:
+            np.testing.assert_array_equal(g.solve.exemplars,
+                                          w.solve.exemplars)
+            assert g.solve.n_sweeps == w.solve.n_sweeps
+            assert g.solve.converged == w.solve.converged
+            assert len(g.solve.trace) == len(w.solve.trace)
+            if w.solve.converged:
+                assert not g.solve.trace[-patience:].any()
+            gap = max(gap, int(np.abs(g.solve.trace.astype(np.int64)
+                                      - w.solve.trace).max(initial=0)))
+    record_property("largest_trace_gap", gap)
+
+
+def test_service_overflow_launches_the_topk_kernel_once(dev):
+    """A request past ``max_bucket_n`` runs one dense_topk solve on the
+    worker's card: one ``topk_build`` launch, and the decisions of a
+    direct solve with the same config."""
+    from repro_torch.data import gaussian_blobs
+    from repro_torch.serve.cluster import ClusterService
+
+    cfg = SolveConfig(**SERVE_KW)
+    svc = ClusterService(config=cfg, buckets=[(64, 2, 4)],
+                         auto_bucket=False, max_bucket_n=64)
+    x, _ = gaussian_blobs(n=6000, k=8, seed=1, spread=0.5)
+    reset_launch_counts()
+    res = svc.solve_sync(x, stream="big")
+    assert launch_counts() == {"similarity": 0, "responsibility": 0,
+                               "availability": 0, "topk_build": 1,
+                               "flash_attention": 0}
+    assert res.bucket is None and res.solve.backend == "dense_topk"
+    direct = solve(x, cfg.replace(backend="dense_topk", k=64,
+                                  input_kind="points"))
+    np.testing.assert_array_equal(res.solve.exemplars, direct.exemplars)
+    np.testing.assert_array_equal(res.solve.trace, direct.trace)
+    assert svc.snapshot()["overflow_solves"] == 1
+
+
+def test_service_worker_fault_resolves_every_future_on_cuda(dev):
+    """A ``serve.launch`` fault on a scheduler thread: the riders retry on
+    the other worker, and every future resolves with a result."""
+    from repro_torch.data import gaussian_blobs
+    from repro_torch.runtime.faultinject import FaultInjector, Rule
+    from repro_torch.serve.cluster import ClusterService
+
+    svc = ClusterService(config=SolveConfig(**SERVE_KW),
+                         buckets=[(64, 2, 2)], auto_bucket=False,
+                         workers=2, max_wait_ms=1.0,
+                         worker_cooldown_s=0.05, retry_backoff_ms=1.0)
+    svc.warmup()
+    inj = FaultInjector().add(Rule("serve.launch", nth=0,
+                                   match={"worker": 1}))
+    svc.start()
+    try:
+        with faultinject.active(inj):
+            futs = [svc.submit(gaussian_blobs(n=40, k=4, seed=s,
+                                              spread=0.3)[0])
+                    for s in range(10)]
+            for f in futs:
+                assert f.result(timeout=120).path == "full"
+    finally:
+        svc.stop(timeout=30)
+    assert len(inj.events) == 1
+    assert svc.stats.worker_deaths == 1
+    assert svc.stats.retried_batches >= 1
