@@ -85,6 +85,23 @@ solve_graph the 200,000 blobs' top-k graph: ``EdgeList.from_points(x,
           bytes) against the default build with the same preference; the
           default solve with ``preseed="graph"`` against
           ``build="reference"``
+solve_distributed the MR backends and the sharded top-k path on 4 ranks
+          that share the card (``sharding.dist.spawn``; gloo, every
+          collective through host memory): the Mandrill similarity stack
+          built on every rank (bit-equal to this process's S), then
+          ``mr1d_stats`` and ``mr2d`` (2 x 2 grid) for 50 sweeps and
+          ``mr1d_transpose`` for 10, against ``dense_parallel`` on the card
+          (equal cluster counts, at most 0.1 % of points with another
+          exemplar); the blobs' sharded build (edge sets bit for bit the
+          fused build's), the default ``solve(x)`` in the group (routed to
+          ``dense_topk`` with the sharded build and sweep; decisions and
+          trace equal to the one-process default solve), and the sharded
+          sweeps with the allgather exchange under the converged stop and
+          the psum exchange under the fixed one (decisions and traces equal
+          to ``run_topk``'s on the fused lists); each rank's walls, bytes
+          sent and launches (``similarity`` on every rank's build), bytes a
+          sweep beside ``comm_bytes_per_iteration``/``comm_bytes_per_sweep``;
+          and ``python -m repro_torch.launch.cluster --workers 4``
 solve_checkpoint the default ``dense_topk`` solve of the blobs under both
           stops, run plain, checkpointed every 10 sweeps, crashed at the
           second save and resumed, and resumed from a copy of the crashed
@@ -242,6 +259,7 @@ def kernel_cases(x_pixels) -> list[dict]:
     against the plain version (None: bit-identical), bytes and operations.
     """
     from repro_torch.kernels import availability, responsibility, similarity
+    from repro_torch.solver import SolveConfig
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -265,6 +283,23 @@ def kernel_cases(x_pixels) -> list[dict]:
                 tol=None if exact else
                 (lambda want, x=x: similarity.tolerance(x, x)),
                 nbytes=4 * (2 * n * d + n * n), ops=n * n * (2 * d + 4)))
+    # the tile each rank of the sharded top-k build hands the kernel: a
+    # block of build_block_rows rows against build_block_cols columns of
+    # 2-D points (solve_distributed's blobs)
+    tr, tc = SolveConfig().build_block_rows, SolveConfig().build_block_cols
+    for kind, (x, y) in (("integer", (randint(0, 256, tr, 2),
+                                      randint(0, 256, tc, 2))),
+                         ("random", (4 * randn(tr, 2), 4 * randn(tc, 2)))):
+        exact = kind == "integer"
+        cases.append(dict(
+            name="similarity", case=f"tile {tr}x{tc},d=2,{kind}",
+            kernel=lambda x=x, y=y: similarity.neg_sqeuclidean(x, y),
+            plain=lambda x=x, y=y: similarity.plain(x, y),
+            exact=(lambda x=x, y=y: similarity.plain(x, y)) if exact
+            else None,
+            tol=None if exact else
+            (lambda want, x=x, y=y: similarity.tolerance(x, y)),
+            nbytes=4 * (2 * (tr + tc) + tr * tc), ops=tr * tc * (2 * 2 + 4)))
     for n in (N_MAIN, N_RAGGED):
         hap = hap_operands(x_pixels[:n])
         for kind in ("random", "ties", "hap"):
@@ -1907,6 +1942,273 @@ def profile_all(pixels, blobs) -> None:
                 lambda: build_topk_similarity(x, K_TOPK, cfg))
 
 
+# -------------------------------------------------------------- distributed
+DIST_WORLD = 4           # ranks on the one card (gloo, host copies)
+TRANSPOSE_SWEEPS = 10    # mr1d_transpose moves ~0.68 GB a rank a sweep
+
+
+def digest(*tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_rank(pixels, blobs, device: str) -> dict:
+    """One rank of solve_distributed's group: the Mandrill similarity
+    stack and the three MR backends on it, then the blobs' sharded top-k
+    build, the sharded default solve and the explicit sharded sweeps.
+    Each run is read around itself: wall, bytes this rank sent, launches."""
+    from repro_torch.core import (
+        make_preferences, pairwise_similarity, set_preferences, stack_levels,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import factor_2d, make_mesh, make_worker_mesh
+    from repro_torch.sharding import dist
+    from repro_torch.solver import SolveConfig, solve, topk
+    from repro_torch.solver.topk_sharded import run_topk_sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = SolveConfig(device=device)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    workers = make_worker_mesh()
+    grid = make_mesh(factor_2d(dist.world_size()), ("rows", "cols"))
+    out = {"rank": dist.rank(), "world": dist.world_size(),
+           "transport": workers.transport,
+           "device": (f"cuda:{torch.cuda.current_device()}" if on_card
+                      else device), "grid": grid.shape}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def run(name, mesh, fn):
+        sync()
+        sent = mesh.traffic.bytes_sent
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        out[name] = {"wall_s": time.perf_counter() - t0,
+                     "bytes_sent": mesh.traffic.bytes_sent - sent,
+                     "launches": launch_counts()}
+        return res
+
+    # Mandrill: S and the median preference, built on every rank
+    def stack():
+        s = pairwise_similarity(torch.from_numpy(pixels).to(dev))
+        return s, stack_levels(set_preferences(
+            s, make_preferences(s, "median")), cfg.levels)
+    s, s3 = run("mandrill_similarity", workers, stack)
+    out["mandrill_similarity"]["digest"] = digest(s)
+    del s
+    for backend, sweeps, mesh in (("mr1d_stats", cfg.max_iterations, workers),
+                                  ("mr2d", cfg.max_iterations, grid),
+                                  ("mr1d_transpose", TRANSPOSE_SWEEPS,
+                                   workers)):
+        res = run(backend, mesh, lambda: solve(
+            s3, cfg, backend=backend, max_iterations=sweeps, mesh=mesh))
+        out[backend].update(sweeps=sweeps, exemplars=res.exemplars,
+                            n_clusters=res.n_clusters)
+    del s3
+    torch.cuda.empty_cache()
+
+    # blobs: the sharded build, the sharded default solve, the sweeps
+    x = torch.from_numpy(blobs).to(dev)
+    sharded = cfg.replace(build="sharded", mesh=workers)
+    s3k, idx = run("topk_build_sharded", workers, lambda: topk.build_from_points(
+        x, K_TOPK, cfg.levels, config=sharded))
+    out["topk_build_sharded"]["digest"] = digest(s3k[0, :, 1:], idx[:, 1:])
+    # the default call: in a group of 4 it routes to dense_topk with the
+    # sharded build (N >= 8,192) and the sharded sweep (N >= 32,768)
+    res = run("topk_solve", workers, lambda: solve(
+        blobs, cfg.replace(mesh=workers)))
+    out["topk_solve"].update(exemplars=res.exemplars, trace=res.trace,
+                             n_sweeps=res.n_sweeps, backend=res.backend)
+    for name, stop, exchange in (("allgather_converged", "converged",
+                                  "allgather"),
+                                 ("psum_fixed", "fixed", "psum")):
+        _, e, ns, conv, tr = run(name, workers, lambda: run_topk_sharded(
+            s3k, idx, workers, max_iterations=cfg.max_iterations,
+            damping=cfg.damping, stop=stop, exchange=exchange))
+        out[name].update(exemplars=e[:, :x.shape[0]].cpu().numpy(),
+                         n_sweeps=ns, converged=conv, trace=tr[:ns])
+    return out
+
+
+def run_solve_distributed(pixels, blobs, topk_default) -> dict:
+    """The MR backends and the sharded top-k path on DIST_WORLD ranks that
+    share the one card, against the one-process paths on the same card;
+    then ``python -m repro_torch.launch.cluster --workers 4``. Returns the
+    ranks' ``similarity`` launches by path."""
+    from repro_torch.core import comm_bytes_per_iteration
+    from repro_torch.solver import SolveConfig, solve, topk
+    from repro_torch.solver.topk_sharded import comm_bytes_per_sweep
+
+    t_phase = time.perf_counter()
+    cfg = SolveConfig()
+    n, nb = pixels.shape[0], blobs.shape[0]
+    # -- the one-process oracles, on this card
+    dense = {}
+    for sweeps in (cfg.max_iterations, TRANSPOSE_SWEEPS):
+        t0 = time.perf_counter()
+        dense[sweeps] = solve(pixels, backend="dense_parallel",
+                              max_iterations=sweeps, device=DEVICE)
+        torch.cuda.synchronize()
+        emit({"phase": "solve_distributed", "oracle": "dense_parallel",
+              "sweeps": sweeps, "wall_s": time.perf_counter() - t0})
+    from repro_torch.core import pairwise_similarity
+    s_digest = digest(pairwise_similarity(
+        torch.from_numpy(pixels).to(DEVICE)))
+    x = torch.from_numpy(blobs).to(DEVICE)
+    s3k, idx = topk.build_from_points(x, K_TOPK, cfg.levels)   # fused
+    fused_digest = digest(s3k[0, :, 1:], idx[:, 1:])
+    oracle = {stop: topk.run_topk(
+        s3k, idx, max_iterations=cfg.max_iterations, damping=cfg.damping,
+        stop=stop) for stop in ("fixed", "converged")}
+    oracle = {stop: (e.cpu().numpy(), ns, conv, tr[:ns])
+              for stop, (_, e, ns, conv, tr) in oracle.items()}
+    del x, s3k, idx
+    torch.cuda.empty_cache()
+
+    # -- the group
+    t0 = time.perf_counter()
+    ranks = dist_rank_all(pixels, blobs)
+    spawn_wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    emit({"phase": "solve_distributed", "world": r0["world"],
+          "transport": r0["transport"], "grid": r0["grid"],
+          "devices": [r["device"] for r in ranks], "spawn_wall_s": spawn_wall})
+    on_one = "cuda:0" if DEVICE == "cuda" else DEVICE
+    check(r0["world"] == DIST_WORLD and r0["transport"] == "gloo"
+          and all(r["device"] == on_one for r in ranks),
+          f"group: {r0['world']} ranks on {r0['transport']}")
+    check(len({r["mandrill_similarity"]["digest"] for r in ranks}
+              | {s_digest}) == 1,
+          "the ranks' Mandrill S differ from each other or the parent's")
+
+    def per_rank(name, key):
+        return [r[name][key] for r in ranks]
+
+    emit({"phase": "solve_distributed", "step": "Mandrill S and median",
+          "wall_s": per_rank("mandrill_similarity", "wall_s"),
+          "s_equal_on_every_rank_and_here": True})
+
+    for backend in ("mr1d_stats", "mr2d", "mr1d_transpose"):
+        sweeps = r0[backend]["sweeps"]
+        ref = dense[sweeps]
+        e = r0[backend]["exemplars"]
+        mismatch = float((e != ref.exemplars).mean())
+        cluster_bytes = sum(per_rank(backend, "bytes_sent"))
+        model = (comm_bytes_per_iteration(
+            -(-n // DIST_WORLD) * DIST_WORLD, cfg.levels, DIST_WORLD,
+            backend.split("_")[1]) if backend != "mr2d" else None)
+        emit({"phase": "solve_distributed", "backend": backend, "n": n,
+              "sweeps": sweeps, "wall_s": per_rank(backend, "wall_s"),
+              "n_clusters": r0[backend]["n_clusters"].tolist(),
+              "dense_parallel_n_clusters": ref.n_clusters.tolist(),
+              "exemplar_mismatch": mismatch,
+              "measured_cluster_bytes_per_sweep": cluster_bytes / sweeps,
+              "model_bytes_per_sweep": model,
+              "launches": per_rank(backend, "launches")})
+        check(all(np.array_equal(r[backend]["exemplars"], e) for r in ranks),
+              f"{backend}: ranks returned other exemplars")
+        check(np.array_equal(r0[backend]["n_clusters"], ref.n_clusters),
+              f"{backend}: cluster counts {r0[backend]['n_clusters']} vs "
+              f"dense_parallel {ref.n_clusters}")
+        check(mismatch <= MAX_MISMATCH,
+              f"{backend}: {mismatch:.2%} of exemplars differ")
+
+    build = r0["topk_build_sharded"]
+    emit({"phase": "solve_distributed", "step": "sharded build",
+          "n": nb, "k": K_TOPK,
+          "wall_s": per_rank("topk_build_sharded", "wall_s"),
+          "edge_sets_equal_fused": all(
+              r["topk_build_sharded"]["digest"] == fused_digest
+              for r in ranks),
+          "launches": per_rank("topk_build_sharded", "launches")})
+    check(all(r["topk_build_sharded"]["digest"] == fused_digest
+              for r in ranks),
+          "sharded build: edge sets differ from the fused build's")
+    sol = r0["topk_solve"]
+    same = all(np.array_equal(r["topk_solve"]["exemplars"],
+                              topk_default.exemplars)
+               and np.array_equal(r["topk_solve"]["trace"],
+                                  topk_default.trace)
+               and r["topk_solve"]["n_sweeps"] == topk_default.n_sweeps
+               for r in ranks)
+    emit({"phase": "solve_distributed", "step": "sharded solve",
+          "backend": sol["backend"], "n": nb,
+          "wall_s": per_rank("topk_solve", "wall_s"),
+          "bytes_sent": per_rank("topk_solve", "bytes_sent"),
+          "launches": per_rank("topk_solve", "launches"),
+          "decisions_equal_one_process": same})
+    check(sol["backend"] == "dense_topk",
+          f"the default solve in a group chose {sol['backend']}")
+    check(same, "sharded solve: decisions differ from the default solve")
+    for name, stop, exchange in (("allgather_converged", "converged",
+                                  "allgather"), ("psum_fixed", "fixed",
+                                                 "psum")):
+        e, ns, conv, tr = oracle[stop]
+        got = r0[name]
+        equal = all(np.array_equal(r[name]["exemplars"], e)
+                    and r[name]["n_sweeps"] == ns
+                    and r[name]["converged"] == conv for r in ranks)
+        trace_equal = np.array_equal(got["trace"], tr)
+        cluster_bytes = sum(per_rank(name, "bytes_sent"))
+        emit({"phase": "solve_distributed", "step": "sharded sweeps",
+              "exchange": exchange, "stop": stop,
+              "wall_s": per_rank(name, "wall_s"),
+              "n_sweeps": got["n_sweeps"], "converged": got["converged"],
+              "decisions_equal_one_process": equal,
+              "trace_equal": trace_equal,
+              "measured_cluster_bytes_per_sweep":
+                  cluster_bytes / got["n_sweeps"],
+              "model_bytes_per_sweep": comm_bytes_per_sweep(
+                  nb, K_TOPK, cfg.levels, DIST_WORLD, exchange)})
+        check(equal and trace_equal,
+              f"sharded {exchange} {stop}: decisions differ")
+    launches = {
+        "solve_distributed: sharded top-k solve (4 ranks)":
+            [r["topk_solve"]["launches"]["similarity"] for r in ranks],
+        "solve_distributed: sharded build (4 ranks)":
+            [r["topk_build_sharded"]["launches"]["similarity"]
+             for r in ranks]}
+    for name in ("topk_solve", "topk_build_sharded"):
+        for r in ranks:
+            counts = r[name]["launches"]
+            check(counts["similarity"] > 0
+                  and sum(counts.values()) == counts["similarity"],
+                  f"{name}: rank {r['rank']} launches {counts}")
+    del ranks
+
+    # -- the paper's driver
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.cluster", "--workers",
+         str(DIST_WORLD), "--dataset", "aggregation", "--device", DEVICE],
+        cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    emit({"phase": "solve_distributed", "step": "driver",
+          "rc": proc.returncode, "seconds": time.perf_counter() - t0,
+          "stdout": proc.stdout.strip().splitlines()[-5:],
+          "stderr": proc.stderr.strip().splitlines()[-3:]})
+    check(proc.returncode == 0, "launch.cluster --workers 4 failed")
+    emit({"phase": "solve_distributed", "step": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def dist_rank_all(pixels, blobs) -> list:
+    from repro_torch.sharding import dist
+    return dist.spawn(dist_rank, DIST_WORLD, device=DEVICE,
+                      args=(pixels, blobs, DEVICE))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1956,6 +2258,7 @@ def main() -> int:
     coarsen_res = run_solve_coarsen()
     paths = {"dense_topk (default solve)": launches["topk_build"]}
     paths.update(run_solve_graph(blobs, topk_res))
+    similarity_paths = run_solve_distributed(pixels, blobs, topk_res)
     del topk_res
     paths.update(run_solve_checkpoint(blobs, coarsen_res))
     paths.update(run_serve(smi))
@@ -1977,6 +2280,8 @@ def main() -> int:
             "launches": launches[name], **summary[name]})
         if name == "topk_build":
             kernels[-1]["launches_by_path"] = paths
+        if name == "similarity":
+            kernels[-1]["launches_by_path"] = similarity_paths
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -27,7 +27,7 @@ reference's sequential scatter does.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -45,13 +45,34 @@ class IncomingEdges(NamedTuple):
     offsets: torch.Tensor    # (N + 1,) int64
 
 
-def incoming_edges(idx: torch.Tensor) -> IncomingEdges:
-    """Group the edges of ``idx`` (N, kk) by target column, once per
-    solve (``idx`` is fixed for the whole solve)."""
+def incoming_edges(idx: torch.Tensor,
+                   n_total: Optional[int] = None) -> IncomingEdges:
+    """Group the edges of ``idx`` (B, kk) by target column, once per
+    solve (``idx`` is fixed for the whole solve). The columns run to
+    ``n_total`` (default B, the whole graph); a row block of a sharded
+    sweep passes the global point count, so its partial column sums line
+    up with every other block's."""
     flat = idx.reshape(-1).long()
     perm = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=idx.shape[0])
+    counts = torch.bincount(
+        flat, minlength=idx.shape[0] if n_total is None else n_total)
     offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    return IncomingEdges(perm, offsets)
+
+
+def with_carry(edges: IncomingEdges) -> IncomingEdges:
+    """The grouping with one more term at the head of every column's
+    segment: the carry that ``col_partial_topk(..., carry=)`` appends after
+    the E edges (flat position E + j for column j)."""
+    n = edges.offsets.numel() - 1
+    e = edges.perm.numel()
+    offsets = edges.offsets + torch.arange(n + 1, device=edges.perm.device)
+    heads = offsets[:-1]
+    perm = torch.empty(e + n, dtype=torch.int64, device=edges.perm.device)
+    perm[heads] = e + torch.arange(n, device=edges.perm.device)
+    rest = torch.ones(e + n, dtype=torch.bool, device=edges.perm.device)
+    rest[heads] = False
+    perm[rest] = edges.perm
     return IncomingEdges(perm, offsets)
 
 
@@ -66,16 +87,21 @@ def rho_topk(s: torch.Tensor, a: torch.Tensor,
     return s + torch.minimum(tau.unsqueeze(-1), -row_max_excl)
 
 
-def col_partial_topk(r: torch.Tensor, edges: IncomingEdges) -> torch.Tensor:
+def col_partial_topk(r: torch.Tensor, edges: IncomingEdges,
+                     carry: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The (N,) availability column sum: max(0, rho) over the stored
     edges into each column, self slot excluded, each column's edges summed
-    in row-major order."""
+    in row-major order. With ``carry`` (one value a column, ``edges`` from
+    ``with_carry``) each column's sum starts from its carry: a row block
+    continues the sum of the blocks before it."""
     rp = r.clamp_min(0.0)
     rp = torch.cat([torch.zeros_like(rp[..., :1]), rp[..., 1:]], dim=-1)
     lead, n = rp.shape[:-2], edges.offsets.numel() - 1
     flat = rp.reshape(-1, rp.shape[-2] * rp.shape[-1])       # (L', E)
     if flat.shape[0] == 0:                                   # no levels
         return rp.new_zeros((*lead, n))
+    if carry is not None:
+        flat = torch.cat([flat, carry.reshape(flat.shape[0], n)], dim=1)
     grouped = flat[:, edges.perm].T.contiguous()             # (E, L')
     col = torch.segment_reduce(grouped, "sum", offsets=edges.offsets,
                                axis=0, unsafe=True)          # (n, L')
@@ -147,13 +173,15 @@ def s_next_topk(s_next: torch.Tensor, a: torch.Tensor, r: torch.Tensor,
     return torch.cat([s_next[..., :1], out[..., 1:]], dim=-1)
 
 
-def assignments_topk(a: torch.Tensor, r: torch.Tensor,
-                     idx: torch.Tensor) -> torch.Tensor:
+def assignments_topk(a: torch.Tensor, r: torch.Tensor, idx: torch.Tensor,
+                     n_total: Optional[int] = None) -> torch.Tensor:
     """Eq 2.8 decode: argmax of (alpha + rho) over stored positions, mapped
     to global columns; ties break on the *global* column (the smallest),
     as the dense ``argmax`` does, not on the stored position (the self
-    slot comes first)."""
+    slot comes first). ``n_total`` is the global point count when the
+    operands are a row block: the sentinel must lie past every column."""
     v = a + r
     m = v.amax(dim=-1, keepdim=True)
-    cand = torch.where(v == m, idx.to(torch.int64), idx.shape[0])
+    n = idx.shape[0] if n_total is None else n_total
+    cand = torch.where(v == m, idx.to(torch.int64), n)
     return cand.amin(dim=-1).to(torch.int32)

@@ -1,5 +1,7 @@
-"""Data partitioning (port of the data side of ``repro/sharding``): the kd
-median-cut partitioner. The reference's mesh helpers have no counterpart."""
-from repro_torch.sharding.partitioning import kd_cells, kd_median_cut
+"""Data partitioning and process groups (port of ``repro/sharding``): the
+kd median-cut partitioner, ``row_block``, and in ``sharding.dist`` the
+collectives over ``torch.distributed``. The reference's jax-version shims
+and spec helpers have no counterpart yet."""
+from repro_torch.sharding.partitioning import kd_cells, kd_median_cut, row_block
 
-__all__ = ["kd_cells", "kd_median_cut"]
+__all__ = ["kd_cells", "kd_median_cut", "row_block"]

@@ -1,6 +1,7 @@
 """kd median-cut point partitioning (a copy of ``kd_median_cut`` and
 ``kd_cells`` from ``repro/sharding/partitioning.py``; the port imports
-nothing of ``repro``).
+nothing of ``repro``), and ``row_block``, the counterpart of the
+reference's ``device_put_row_sharded``.
 
 The partitioner is shared by the two-stage top-k build (which uses the
 *ordering*: consecutive runs form tight cells for its pruning gate) and
@@ -12,6 +13,7 @@ locality depend on it.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def kd_median_cut(x: np.ndarray, leaf: int
@@ -60,3 +62,18 @@ def kd_cells(x: np.ndarray, leaf: int) -> list[np.ndarray]:
     perm, splits = kd_median_cut(x, leaf)
     return [np.sort(perm[splits[c]:splits[c + 1]])
             for c in range(len(splits) - 1)]
+
+
+def row_block(x: torch.Tensor, mesh, axis_name: str, *,
+              axis: int = 0) -> torch.Tensor:
+    """This rank's contiguous block of ``x`` along ``axis`` over the mesh
+    axis ``axis_name`` (the reference's ``device_put_row_sharded``: the
+    layout every row-sharded program starts from). ``x.shape[axis]`` must
+    split evenly."""
+    ax = mesh.axis(axis_name)
+    n = x.shape[axis]
+    if n % ax.size:
+        raise ValueError(f"{n} rows do not split over {ax.size} "
+                         f"{axis_name}; pad them first")
+    b = n // ax.size
+    return x.narrow(axis, ax.index * b, b).contiguous()

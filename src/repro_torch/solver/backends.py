@@ -15,18 +15,22 @@ coarsen            kd-partition -> batched local dense solves -> global
 graph_affinity     Borůvka min-edge/contract affinity clustering over
                    an EdgeList (or the built top-k graph); O(N*k) per
                    round, ~log N rounds
-
-The reference's distributed backends (mr1d_stats, mr1d_transpose, mr2d)
-come with a later slice (``ROADMAP.md`` queue A.7).
+mr1d_stats         paper §3 MR-HAP over the group's ranks, 1-D row
+                   sharding, O(L*N) statistics exchanged
+mr1d_transpose     the same with the paper's distributed transposes,
+                   O(L*N^2/W) exchanged
+mr2d               2-D tile decomposition over a rows x cols mesh
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.mrhap import run_mrhap, run_mrhap_2d
 from repro_torch.core.streaming import streaming_hap
 from repro_torch.graph.edges import EdgeList
-from repro_torch.solver import dense, topk
+from repro_torch.sharding.dist import world_size
+from repro_torch.solver import dense, topk, topk_sharded
 from repro_torch.solver.config import SolveConfig
 from repro_torch.solver.registry import BackendSpec, register_backend
 from repro_torch.solver.result import RawBackendResult
@@ -85,17 +89,35 @@ def _topk_run(data, cfg: SolveConfig) -> RawBackendResult:
             *(torch.from_numpy(a).to(device) for a in (vals, idx_off, pref)))
         s3k = s_rows.expand(cfg.levels, *s_rows.shape).contiguous()
     elif data.ndim == 3:
-        s3k, idx = topk.compress_stack(data, topk.resolve_k(cfg.k,
-                                                             data.shape[1]))
+        n = data.shape[1]
+        s3k, idx = topk.compress_stack(data, topk.resolve_k(cfg.k, n))
     else:
+        n = data.shape[0]
         s3k, idx = topk.build_from_points(
-            data, topk.resolve_k(cfg.k, data.shape[0]), cfg.levels,
+            data, topk.resolve_k(cfg.k, n), cfg.levels,
             metric=cfg.metric, preference=cfg.preference, seed=cfg.seed,
             config=cfg)
+
+    mesh = None
+    if topk_sharded.resolve_sweep(cfg.sweep, n=n,
+                                  n_devices=world_size()) == "sharded":
+        from repro_torch.solver.engine import prepare_mesh
+        mesh, _ = prepare_mesh("1d", cfg)
+        if mesh.shape["workers"] == 1:
+            # one rank shards nothing: the one-device loop is the same
+            # arithmetic without the exchanges (the reference's detour)
+            mesh = None
     if cfg.checkpoint_every > 0 or cfg.resume_from:
         from repro_torch.solver import checkpointing
         state, e, n_sweeps, conv, trace = \
-            checkpointing.run_topk_checkpointed(s3k, idx, cfg)
+            checkpointing.run_topk_checkpointed(s3k, idx, cfg, mesh=mesh)
+    elif mesh is not None:
+        state, e, n_sweeps, conv, trace = topk_sharded.run_topk_sharded(
+            s3k, idx, mesh, max_iterations=cfg.max_iterations,
+            damping=cfg.damping, kappa=cfg.kappa, s_mode=cfg.s_mode,
+            stop=cfg.stop, patience=cfg.patience, exchange=cfg.exchange)
+        if cfg.keep_state:
+            state = topk_sharded.gather_state(state, mesh)
     else:
         state, e, n_sweeps, conv, trace = topk.run_topk(
             s3k, idx, max_iterations=cfg.max_iterations, damping=cfg.damping,
@@ -150,6 +172,38 @@ register_backend(BackendSpec(
     accepts_edges=True, supports_early_stop=True,
     doc="Borůvka min-edge/contract affinity clustering over an edge "
         "list; O(N*k) per round, ~log N rounds"))
+
+
+def _mr1d_runner(comm_mode: str):
+    def run(s3, cfg: SolveConfig) -> RawBackendResult:
+        res = run_mrhap(s3, cfg.mesh, iterations=cfg.max_iterations,
+                        damping=cfg.damping, comm_mode=comm_mode)
+        return RawBackendResult(
+            exemplars=res.exemplars, n_sweeps=cfg.max_iterations,
+            converged=None, trace=None)
+    return run
+
+
+register_backend(BackendSpec(
+    name="mr1d_stats", run=_mr1d_runner("stats"), mesh_kind="1d",
+    doc="1-D row sharding, O(L*N) statistics communication"))
+
+register_backend(BackendSpec(
+    name="mr1d_transpose", run=_mr1d_runner("transpose"), mesh_kind="1d",
+    doc="paper-faithful distributed transposes, O(L*N^2/W) communication"))
+
+
+def _mr2d_run(s3, cfg: SolveConfig) -> RawBackendResult:
+    res = run_mrhap_2d(s3, cfg.mesh, iterations=cfg.max_iterations,
+                       damping=cfg.damping)
+    return RawBackendResult(
+        exemplars=res.exemplars, n_sweeps=cfg.max_iterations,
+        converged=None, trace=None)
+
+
+register_backend(BackendSpec(
+    name="mr2d", run=_mr2d_run, mesh_kind="2d",
+    doc="2-D tile decomposition over rows x cols mesh axes"))
 
 
 def _streaming_run(x, cfg: SolveConfig) -> RawBackendResult:

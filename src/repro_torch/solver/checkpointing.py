@@ -140,12 +140,12 @@ def run_topk_checkpointed(s3k: torch.Tensor, idx: torch.Tensor,
     """Checkpoint-aware replacement for ``topk.run_topk``, with its return
     contract ``(TopKState, exemplars, n_sweeps, converged, trace)``.
 
-    ``mesh`` is the reference's sharded sweep; the port runs on one
-    device."""
+    ``mesh`` is the reference's sharded sweep, whose checkpointed runner
+    is not ported yet: with a mesh it raises."""
     if mesh is not None:
         raise NotImplementedError(
-            "checkpointed sharded sweeps come with the distributed backends "
-            "(ROADMAP.md queue A.7)")
+            "checkpointed sharded sweeps are not ported yet (ROADMAP.md "
+            "queue A.7); pass sweep='single' to checkpoint in a group")
     return _run_single_checkpointed(s3k, idx, cfg)
 
 

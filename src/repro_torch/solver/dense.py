@@ -1,4 +1,5 @@
-"""Single-device dense sweep drivers (port of ``repro/solver/dense.py``).
+"""Dense sweep drivers and the shared stopping-rule loop (port of
+``repro/solver/dense.py``).
 
 * ``fused_sweep`` — one Jacobi (§3-schedule) HAP iteration whose heavy
   O(L*N^2) updates run through the responsibility and availability
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.core import hap
 from repro_torch.kernels import ops
+from repro_torch.sharding.dist import psum
 
 DenseOrder = ("sequential", "parallel", "fused")
 
@@ -68,8 +70,9 @@ def initial_carry(init, levels: int, n: int, max_iterations: int):
 
 def drive_sweeps(init, sweep, assign, levels: int, n: int, *,
                  max_iterations: int, stop: str, patience: int,
+                 count_mask=None, axis=None,
                  segmented: bool = False, carry=None, until=None):
-    """The stopping-rule loop every single-device backend shares.
+    """The stopping-rule loop every sweep-based backend shares.
 
     ``sweep(state, it) -> state`` and ``assign(state) -> (L, N) int32``
     are backend-specific. Returns ``(state, exemplars, n_sweeps, converged,
@@ -79,6 +82,13 @@ def drive_sweeps(init, sweep, assign, levels: int, n: int, *,
     ``stop="fixed"`` keeps the per-sweep change counts on the device and
     reads them once, at the end; ``stop="converged"`` reads the count once
     per sweep to decide whether to stop.
+
+    Row-sharded callers (``solver.topk_sharded``) run this loop on every
+    rank with ``n`` their local row count: ``count_mask`` ((n,) bool) drops
+    padding rows from the change count, and ``axis`` (a
+    ``sharding.dist.Axis``) sums the counts over the ranks, so every rank
+    sees the one-device run's trace and stops on its sweep. Under
+    ``"fixed"`` the whole count vector is summed once, at the end.
 
     Checkpointed callers (``solver.checkpointing``) set ``segmented=True``
     to run one *segment*: ``carry`` is the raw carry ``(state, e_prev,
@@ -94,6 +104,16 @@ def drive_sweeps(init, sweep, assign, levels: int, n: int, *,
     state, e, stable, it, trace = carry
     trace = trace.copy()
     until = max_iterations if until is None else until
+
+    def count(e_new, e_old):
+        diff = e_new != e_old
+        if count_mask is not None:
+            diff = diff & count_mask
+        return diff.sum()
+
+    def reduce(counts):
+        return counts if axis is None else psum(counts, axis)
+
     if stop == "fixed":
         # the patience exit is off; the stable count is kept for the
         # carry (the reference's segments keep it too)
@@ -103,10 +123,10 @@ def drive_sweeps(init, sweep, assign, levels: int, n: int, *,
         for it in range(start, until):
             state = sweep(state, it)
             e_new = assign(state)
-            changes[it - start] = (e_new != e).sum()
+            changes[it - start] = count(e_new, e)
             e = e_new
         it = until
-        counts = changes.cpu().numpy()       # the one host read
+        counts = reduce(changes).cpu().numpy()       # the one host read
         trace[start:it] = counts
         for changed in counts:
             stable = stable + 1 if changed == 0 else 0
@@ -114,7 +134,7 @@ def drive_sweeps(init, sweep, assign, levels: int, n: int, *,
         while it < until and stable < patience:
             state = sweep(state, it)
             e_new = assign(state)
-            changed = int((e_new != e).sum())    # host sync, once per sweep
+            changed = int(reduce(count(e_new, e)))  # host sync, once a sweep
             stable = stable + 1 if changed == 0 else 0
             trace[it] = changed
             e = e_new

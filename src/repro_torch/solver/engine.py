@@ -14,20 +14,30 @@ own (``dense_topk``, ``graph_affinity``, ``sharded_streaming``,
 (``graph_affinity``, ``dense_topk``) or its densified matrix to the rest —
 and finishes the backend's raw result. Unlike the reference it has no
 degrade chain: a kernel that fails to build or launch raises.
+
+In a ``torch.distributed`` group (one process per worker, started by
+``torchrun`` or ``sharding.dist.spawn``) every rank calls ``solve`` with
+the same input and gets the same result: the routing counts the group's
+ranks, the MR backends run over a mesh of them (``prepare_mesh``), and the
+top-k build and sweep shard their rows over it.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.assignments import canonicalize_levels, dense_labels
+from repro_torch.core.mrhap import pad_similarity
 from repro_torch.core.preferences import make_preferences
 from repro_torch.core.similarity import (
     pairwise_similarity, set_preferences, stack_levels,
 )
 from repro_torch.graph.edges import EdgeList
+from repro_torch.launch.mesh import factor_2d, make_mesh, make_worker_mesh
+from repro_torch.sharding.dist import maybe_init_distributed, world_size
 from repro_torch.solver.config import CHECKPOINT_BACKENDS, SolveConfig
 from repro_torch.solver.registry import auto_select, get_backend
 from repro_torch.solver.result import RawBackendResult, SolveResult
@@ -202,6 +212,9 @@ def solve(data, config: Optional[SolveConfig] = None,
         cfg = cfg.replace(**overrides)
     device = _resolve_device(cfg)
     cfg = cfg.replace(device=str(device))
+    # a launch that torchrun's environment describes joins its group
+    # before routing counts the ranks; in one process a no-op
+    maybe_init_distributed(device)
 
     x, s3, el, n = _normalize_input(data, cfg, device)
     validate_config(cfg, n)
@@ -256,18 +269,52 @@ def solve(data, config: Optional[SolveConfig] = None,
         if s3 is None:
             s3 = (_densify_edges(el, cfg, device) if el is not None
                   else _build_similarity(x, cfg, backend))
+        if spec.mesh_kind:
+            mesh, multiple = prepare_mesh(spec.mesh_kind, cfg)
+            s3, _ = pad_similarity(s3, multiple)
+            cfg = cfg.replace(mesh=mesh)
         raw = spec.run(s3, cfg)
     return _finalize(raw, n, backend)
 
 
 def route(n: int, has_points: bool, device: torch.device,
           cfg: SolveConfig, has_edges: bool = False) -> str:
-    """The backend ``backend="auto"`` runs. ``solve`` places everything on
-    the one device ``cfg.device`` names, so the routing counts one device
-    whatever the host has: the multi-device backends and the sharded
-    build and sweep are not ported yet (``ROADMAP.md`` queue A.7)."""
-    return auto_select(n, cfg.levels, n_devices=1, has_points=has_points,
-                       platform=device.type, cfg=cfg, has_edges=has_edges)
+    """The backend ``backend="auto"`` runs. It counts the ranks of the
+    running ``torch.distributed`` group as the reference counts devices: a
+    plain process counts one, however many cards its host has (each rank
+    runs on one card)."""
+    return auto_select(n, cfg.levels, n_devices=world_size(),
+                       has_points=has_points, platform=device.type, cfg=cfg,
+                       has_edges=has_edges)
+
+
+# ------------------------------------------------------------------- mesh
+def prepare_mesh(kind: str, cfg: SolveConfig):
+    """-> (mesh, pad multiple) for distributed execution over the group's
+    ranks: ``cfg.mesh`` if set, else a 1-D ``workers`` mesh (``"1d"``) or a
+    ``rows`` x ``cols`` mesh of ``factor_2d`` (``"2d"``); the multiple
+    includes ``cfg.pad_to``."""
+    mesh = cfg.mesh
+    if kind == "1d":
+        if mesh is None:
+            mesh = make_worker_mesh()
+        if tuple(mesh.axis_names) != ("workers",):
+            raise ValueError(
+                "mr1d backends need a 1-D mesh with axis 'workers' "
+                f"(got axes {tuple(mesh.axis_names)}); build one with "
+                "repro_torch.launch.mesh.make_worker_mesh()")
+        multiple = mesh.shape["workers"]
+    else:
+        if mesh is None:
+            mesh = make_mesh(factor_2d(world_size()), ("rows", "cols"))
+        if tuple(mesh.axis_names) != ("rows", "cols"):
+            raise ValueError(
+                "mr2d needs a 2-D mesh with axes ('rows', 'cols') "
+                f"(got axes {tuple(mesh.axis_names)})")
+        multiple = math.lcm(mesh.shape["rows"], mesh.shape["cols"])
+    if cfg.pad_to:
+        multiple = math.lcm(multiple, cfg.pad_to)
+    return mesh, multiple
 
 
 def finalize_raw(raw: RawBackendResult, n: int, backend: str) -> SolveResult:

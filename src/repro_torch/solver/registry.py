@@ -2,15 +2,14 @@
 ``repro/solver/registry.py``).
 
 A backend is a function ``run(data, cfg) -> RawBackendResult`` plus the
-capability flags the engine dispatches on. The dense family,
-``dense_topk``, ``sharded_streaming``, ``coarsen`` and ``graph_affinity``
-are ported so far; ``get_backend`` raises ``KeyError`` for any other name,
-listing the registered ones.
+capability flags the engine dispatches on. Every backend of the reference
+is ported; ``get_backend`` raises ``KeyError`` for any other name, listing
+the registered ones.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from repro_torch.solver.config import (
     COARSEN_THRESHOLD, DISTRIBUTED_THRESHOLD, STREAMING_THRESHOLD,
@@ -25,9 +24,10 @@ class BackendSpec:
     #: run(data, cfg) -> RawBackendResult, on an (L, N, N) float32
     #: similarity stack, on (N, d) points when ``needs_points`` or
     #: ``accepts_points``, or on an ``EdgeList`` when ``accepts_edges``.
-    #: (The reference's mesh flags arrive with the backends that need
-    #: them.)
     run: Callable[..., RawBackendResult]
+    #: None (one process) | "1d" | "2d": the engine builds or validates the
+    #: mesh over the group's ranks and pads N to its tile before ``run``
+    mesh_kind: Optional[str] = None
     #: backend consumes raw points, not a similarity tensor
     needs_points: bool = False
     #: backend builds its own (possibly compressed) similarities from
@@ -80,8 +80,8 @@ def auto_select(n: int, levels: int, *, n_devices: int, has_points: bool,
        preference -> ``coarsen``;
     3. points with N >= STREAMING_THRESHOLD -> ``sharded_streaming`` (one
        level, fixed budget) else ``dense_topk``;
-    4. several devices and N >= DISTRIBUTED_THRESHOLD (fixed budget) ->
-       ``mr1d_stats``;
+    4. several ranks in the running group (``n_devices``) and N >=
+       DISTRIBUTED_THRESHOLD (fixed budget) -> ``mr1d_stats``;
     5. one device: ``dense_fused`` on CUDA (the kernel hot path), else
        ``dense_parallel``.
     """

@@ -1,32 +1,29 @@
-"""Top-k similarity build driver: backend selection (port of
-``repro/solver/topk_build.py``).
+"""Top-k similarity build driver: backend selection and the sharded build
+(port of ``repro/solver/topk_build.py``).
 
 ``build_topk_similarity`` resolves ``SolveConfig.build`` and returns the
 ``(vals (N, k), idx (N, k))`` layout. ``auto`` follows the reference's
-rule, with "TPU" read as "CUDA": the fused kernel on CUDA for
-neg-sqeuclidean, the two-stage gated merge for big single-device builds
-(``TWOSTAGE_N <= N <= SELECT_EXACT_MAX_N`` with ``4 k <= N``), the
-reference scan otherwise. Every build selects the same edge set; the knob
-is throughput only.
+rule, with "TPU" read as "CUDA" and "devices" as the ranks of the running
+group: the sharded build in a group of several ranks from
+``SHARDED_N`` points, the fused kernel on CUDA for neg-sqeuclidean, the
+two-stage gated merge for big single-device builds (``TWOSTAGE_N <= N <=
+SELECT_EXACT_MAX_N`` with ``4 k <= N``), the reference scan otherwise.
+Every build selects the same edge set; the knob is throughput only.
 
-What the port does without, for now (``ROADMAP.md`` queue A):
-
-* no degrade fallback: on CUDA the fused build launches its kernel or
-  raises; it never drops to the reference scan;
-* ``build="sharded"``: ``solve`` runs on one device, where the reference's
-  sharded driver short-circuits to its inner build, and so does this one.
-
-``resolve_build_backend`` keeps the reference's ``n_devices`` rule and
-``SHARDED_N`` so the tests can hold the routing table against the
-reference's; ``solve`` always passes one device.
+``sharded_topk_similarity`` gives each rank of a 1-D ``workers`` mesh a
+block of rows to build against the whole column set (and, for a two-stage
+inner build, the same kd permutation), then gathers the blocks, so every
+rank holds every row's list. Unlike the reference there is no degrade
+fallback: on CUDA the fused build launches its kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.topk_similarity import (
-    SELECT_EXACT_MAX_N, topk_similarity, topk_similarity_twostage,
+    SELECT_EXACT_MAX_N, kd_order, topk_similarity, topk_similarity_twostage,
 )
+from repro_torch.sharding.dist import all_gather, world_size
 from repro_torch.solver.config import SolveConfig
 
 #: every build backend; "auto" resolves to one of the rest
@@ -63,11 +60,13 @@ def resolve_build_backend(name: str, *, n: int, k: int,
     return "reference"
 
 
-def _local_build(x: torch.Tensor, k: int, cfg: SolveConfig, backend: str):
+def _local_build(x: torch.Tensor, k: int, cfg: SolveConfig, backend: str,
+                 *, cols=None, row_offset: int = 0, perm=None):
     if backend == "twostage":
         return topk_similarity_twostage(
             x, k, metric=cfg.metric, block_rows=cfg.build_block_rows,
-            chunk=cfg.build_chunk)
+            chunk=cfg.build_chunk, cols=cols, row_offset=row_offset,
+            perm=perm)
     if backend == "fused":
         if cfg.metric != "neg_sqeuclidean":
             raise ValueError(
@@ -77,22 +76,53 @@ def _local_build(x: torch.Tensor, k: int, cfg: SolveConfig, backend: str):
         return topk_similarity_fused(x, k)
     return topk_similarity(
         x, k, metric=cfg.metric, block_rows=cfg.build_block_rows,
-        block_cols=cfg.build_block_cols)
+        block_cols=cfg.build_block_cols, cols=cols, row_offset=row_offset)
+
+
+def sharded_topk_similarity(x: torch.Tensor, k: int, cfg: SolveConfig, *,
+                            mesh=None, inner: str = "auto"):
+    """Row-sharded top-k build over a 1-D ``workers`` mesh (default: the
+    mesh ``solve`` would build, over every rank of the group).
+
+    Rows are padded to a worker multiple and split; each rank builds its
+    block against the whole column set (a two-stage inner build with the
+    kd permutation of all points, the same on every rank), and the blocks
+    are gathered, so every rank returns the whole ``(vals, idx)``, equal
+    to the one-device builds'. The fused kernel is not a per-rank inner
+    build (the reference scan takes its place, as in the reference), and
+    a one-rank mesh runs the inner build alone."""
+    if mesh is None:
+        from repro_torch.solver.engine import prepare_mesh
+        mesh, _ = prepare_mesh("1d", cfg)
+    ax = mesh.axis("workers")
+    n = int(x.shape[0])
+    inner = resolve_build_backend(
+        "auto" if inner in ("auto", "sharded") else inner,
+        n=n, k=k, metric=cfg.metric, platform=x.device.type)
+    if inner == "fused":
+        inner = "reference"
+    if ax.size == 1:
+        return _local_build(x, k, cfg, inner)
+    x = x.float()
+    shard = -(-n // ax.size)
+    block = torch.nn.functional.pad(x, (0, 0, 0, shard * ax.size - n))[
+        ax.index * shard:(ax.index + 1) * shard]
+    perm = (kd_order(x.cpu().numpy(), cfg.build_chunk)
+            if inner == "twostage" else None)
+    vals, idx = _local_build(block, k, cfg, inner, cols=x,
+                             row_offset=ax.index * shard, perm=perm)
+    return (all_gather(vals, ax, axis=0)[:n],
+            all_gather(idx, ax, axis=0)[:n])
 
 
 def build_topk_similarity(x: torch.Tensor, k: int, cfg: SolveConfig):
     """The build front door ``solver.topk`` calls: resolve the backend
-    knob for the device ``x`` lies on, run it, return the compressed
-    off-diagonal layout."""
+    knob for the device ``x`` lies on and the group's rank count, run it,
+    return the compressed off-diagonal layout."""
     n = int(x.shape[0])
-    platform = x.device.type
     backend = resolve_build_backend(cfg.build, n=n, k=k, metric=cfg.metric,
-                                    platform=platform)
+                                    n_devices=world_size(),
+                                    platform=x.device.type)
     if backend == "sharded":
-        # the reference's one-device short-circuit: its inner build, with
-        # the fused kernel replaced by the reference scan
-        backend = resolve_build_backend("auto", n=n, k=k, metric=cfg.metric,
-                                        platform=platform)
-        if backend == "fused":
-            backend = "reference"
+        return sharded_topk_similarity(x, k, cfg)
     return _local_build(x, k, cfg, backend)

@@ -554,3 +554,82 @@ def test_service_worker_fault_resolves_every_future_on_cuda(dev):
     assert len(inj.events) == 1
     assert svc.stats.worker_deaths == 1
     assert svc.stats.retried_batches >= 1
+
+
+# ------------------------------------------------------------- distributed
+def _cuda_ranks(x, s3):
+    """One rank of a 2-rank group on the card (gloo, host-staged)."""
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.sharding import dist
+    from repro_torch.solver.topk_build import sharded_topk_similarity
+
+    mesh = make_worker_mesh()
+    ax = mesh.axis("workers")
+    block = torch.arange(24.0).reshape(2, 3, 4) * (dist.rank() + 1) - 5.0
+    out = {"transport": mesh.transport,
+           "device": torch.cuda.current_device()}
+    for where in ("cpu", "cuda"):
+        t = block.to(where)
+        got = [dist.all_gather(t, ax, axis=1),
+               dist.all_gather(t, ax, axis=0, tiled=False),
+               dist.all_to_all(t, ax, split_axis=2, concat_axis=1),
+               dist.pmax(t, ax), dist.pmin(t, ax), dist.psum(t, ax)]
+        out[where] = [(g.device.type, g.cpu().numpy()) for g in got]
+    out["solve"] = solve(s3, backend="mr1d_stats", max_iterations=30,
+                         damping=0.6).exemplars
+    reset_launch_counts()
+    vals, idx = sharded_topk_similarity(torch.from_numpy(x).cuda(), 16,
+                                        SolveConfig(), mesh=mesh)
+    out["launches"] = launch_counts()
+    out["build"] = (vals.cpu().numpy(), idx.cpu().numpy())
+    return out
+
+
+@pytest.fixture(scope="module")
+def cuda_ranks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import pairwise_similarity, set_preferences
+    from repro_torch.core import stack_levels
+    from repro_torch.core.preferences import median_preference
+    from repro_torch.data import gaussian_blobs
+    from repro_torch.sharding import dist
+
+    rng = _gen(11)
+    x = rng.integers(0, 64, (601, 3)).astype(np.float32)
+    pts, _ = gaussian_blobs(n=120, k=4, seed=6, spread=0.3)
+    s = pairwise_similarity(torch.from_numpy(pts))
+    s3 = stack_levels(set_preferences(s, median_preference(s)), 2).numpy()
+    return x, s3, dist.spawn(_cuda_ranks, 2, device="cuda", args=(x, s3))
+
+
+def test_collectives_on_cuda_tensors_equal_the_cpu(cuda_ranks):
+    """Two ranks on one card take gloo; every collective on CUDA tensors
+    (through host copies) gives the CPU tensors' result, on the card."""
+    for out in cuda_ranks[2]:
+        assert out["transport"] == "gloo" and out["device"] == 0
+        for (dev_c, c), (dev_g, g) in zip(out["cpu"], out["cuda"]):
+            assert (dev_c, dev_g) == ("cpu", "cuda")
+            np.testing.assert_array_equal(g, c)
+
+
+def test_mr1d_stats_on_the_card_decides_as_on_the_cpu(cuda_ranks):
+    _, s3, ranks = cuda_ranks
+    cpu = solve(s3, backend="mr1d_stats", max_iterations=30, damping=0.6,
+                device="cpu")
+    for out in ranks:
+        np.testing.assert_array_equal(out["solve"], cpu.exemplars)
+
+
+def test_sharded_build_launches_similarity_on_each_rank(cuda_ranks):
+    """Each rank's reference-scan block build runs on the similarity
+    kernel (no other kernel), and the gathered lists equal the
+    one-process scan on the CPU bit for bit (ROADMAP C5)."""
+    x, _, ranks = cuda_ranks
+    vals, idx = topk_similarity(torch.from_numpy(x), 16)
+    for out in ranks:
+        counts = out["launches"]
+        assert counts["similarity"] > 0
+        assert sum(counts.values()) == counts["similarity"]
+        np.testing.assert_array_equal(out["build"][0], vals.numpy())
+        np.testing.assert_array_equal(out["build"][1], idx.numpy())

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` (and not
-``chip_smoke.py``) imports ``jax`` or the reference package ``repro``."""
+``chip_smoke.py``) imports ``jax`` or the reference package ``repro``, and
+neither does a rank that ``repro_torch.sharding.dist.spawn`` starts."""
 import ast
 import os
 import pathlib
@@ -39,10 +40,34 @@ def test_importing_the_solver_loads_no_jax():
             "repro_torch.graph.edges, repro_torch.graph.affinity, "
             "repro_torch.checkpoint, repro_torch.checkpoint.ckpt, "
             "repro_torch.runtime, repro_torch.runtime.faultinject, "
-            "repro_torch.solver.checkpointing;"
+            "repro_torch.solver.checkpointing, repro_torch.sharding.dist, "
+            "repro_torch.core.mrhap, repro_torch.launch.cluster, "
+            "repro_torch.launch.mesh, repro_torch.solver.topk_sharded;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    timeout=120)
+
+
+def _loaded_reference_modules():
+    """In a spawned rank: import the distributed modules, run a collective,
+    and list what of jax or repro the process holds."""
+    import repro_torch.core.mrhap  # noqa: F401
+    import repro_torch.launch.cluster  # noqa: F401
+    import repro_torch.solver.backends  # noqa: F401
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.sharding import dist
+
+    import torch
+
+    dist.psum(torch.ones(3), make_worker_mesh().axis("workers"))
+    return [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+
+
+def test_spawned_ranks_load_no_jax():
+    from repro_torch.sharding import dist
+
+    assert dist.spawn(_loaded_reference_modules, 2) == [[], []]

@@ -156,11 +156,14 @@ def test_solve_without_device_needs_cuda(points, monkeypatch):
 
 
 def test_unported_backend_raises_key_error(points):
+    """Every backend of the reference is registered since the distributed
+    slice; a name that is none of them raises, listing them all."""
     with pytest.raises(KeyError, match="registered: coarsen, dense_fused, "
                                        "dense_parallel, dense_sequential, "
                                        "dense_topk, graph_affinity, "
+                                       "mr1d_stats, mr1d_transpose, mr2d, "
                                        "sharded_streaming"):
-        solve(points, backend="mr1d_stats", device="cpu")
+        solve(points, backend="mr3d", device="cpu")
 
 
 def test_graph_preseed_is_not_ported(points):
