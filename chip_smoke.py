@@ -96,12 +96,39 @@ solve_distributed the MR backends and the sharded top-k path on 4 ranks
           fused build's), the default ``solve(x)`` in the group (routed to
           ``dense_topk`` with the sharded build and sweep; decisions and
           trace equal to the one-process default solve), and the sharded
-          sweeps with the allgather exchange under the converged stop and
-          the psum exchange under the fixed one (decisions and traces equal
-          to ``run_topk``'s on the fused lists); each rank's walls, bytes
-          sent and launches (``similarity`` on every rank's build), bytes a
-          sweep beside ``comm_bytes_per_iteration``/``comm_bytes_per_sweep``;
-          and ``python -m repro_torch.launch.cluster --workers 4``
+          sweeps with the allgather exchange under the converged stop (20
+          sweeps) and the psum exchange under the fixed one (50) (decisions
+          and traces equal to ``run_topk``'s on the fused lists); each of
+          the two checkpointed every 10 sweeps, crashed after the second
+          save and resumed (decisions, trace, sweep count, flag and every
+          rank's state block bit-equal to the plain sharded run; ms a save,
+          gather and write apart, bytes a step, ms a resume); the sharded
+          Borůvka on solve_graph's layout of the blobs (labels, rounds and
+          trace equal to the one-process loop on the card);
+          ``solve(edge_list)`` at 20,000 blobs, by default and with
+          ``sweep="sharded"`` (the route, whether the mesh was used,
+          decisions equal to one process); MapReduce K-means on the blobs
+          (labels equal to one-process ``kmeans`` on the card, centers and
+          inertia within 1e-5); each rank's walls, bytes sent and launches
+          (``similarity`` on every rank's builds: the blobs' top-k lists
+          and the 20,000-blob edge list, both sharded), bytes a sweep beside
+          ``comm_bytes_per_iteration``/``comm_bytes_per_sweep``; and
+          ``python -m repro_torch.launch.cluster --workers 4``
+baselines the paper's comparison baselines and the two HAP hooks on the card:
+          K-means on the 200,000 blobs (k = 16, 25 steps, the seed-0
+          draw; time, purity, labels against the CPU port's: at most 0.1 %
+          apart); HK-Means on them (3 levels, branch 3: canopy on the host
+          and K-means on the card timed apart, clusters and purity a level,
+          the levels nest, the top level K-means from the canopy seeds);
+          ``benchmarks/bench_purity.py``'s Fig 5.1 comparison
+          (aggregation, 600 blobs, 400 moons; L = 3, 40 sweeps, damping
+          0.7, median preference; ``dense_parallel``, ``dense_topk`` k = 32
+          and HK-Means: purity and clusters a level on the card and the
+          CPU, decisions and HK-Means' top level equal); ``hap_curate_batch``
+          on 4,096 embeddings of width 1,024 (512 bases x 8 near-copies;
+          kept indices equal to the CPU's); ``cluster_experts`` at 128
+          experts over 4,096 tokens of planted co-activated pairs (clusters
+          equal to the CPU's, every pair in one cluster)
 solve_checkpoint the default ``dense_topk`` solve of the blobs under both
           stops, run plain, checkpointed every 10 sweeps, crashed at the
           second save and resumed, and resumed from a copy of the crashed
@@ -838,6 +865,7 @@ def run_solve_coarsen():
 
 # ------------------------------------------- graph input and checkpoints
 K_GRAPH = 64             # EdgeList.from_points(blobs, 64): the default k
+GRAPH_LAYOUT = ROOT / "build" / "chip_smoke_graph" / "layout.npz"
 N_ORACLE = 20_000        # blobs at which Borůvka is held to the oracle
 CKPT_EVERY = 10          # sweeps between dense_topk checkpoints
 COARSEN_CKPT_EVERY = 64  # coarsen batch groups between checkpoints (of 512)
@@ -919,7 +947,9 @@ def run_solve_graph(blobs, topk_default) -> dict:
     oracle), ``graph_affinity`` from points, the edges on ``dense_topk``
     (against the default solve with the same preference), and the default
     top-k solve with ``preseed="graph"`` (against ``build="reference"``).
-    Returns the ``topk_build`` launches of each path that builds."""
+    Returns the ``topk_build`` launches of each path that builds, and the
+    card's one-process round loop on the blobs' layout (which it writes to
+    GRAPH_LAYOUT for solve_distributed)."""
     from repro_torch.graph import affinity
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.solver import RawBackendResult, finalize_raw, solve
@@ -952,10 +982,17 @@ def run_solve_graph(blobs, topk_default) -> dict:
     vals, idx = (torch.from_numpy(a).to(DEVICE) for a in (tv, ti))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    affinity.run_graph_affinity(vals, idx, levels=res.levels)
+    card = affinity.run_graph_affinity(vals, idx, levels=res.levels)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     del vals, idx
+    # the layout and the one-process loop's result for the sharded
+    # Borůvka of solve_distributed (the ranks load it, never re-sort it)
+    GRAPH_LAYOUT.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(GRAPH_LAYOUT, vals=tv, idx=ti)
+    one_process = {"levels": res.levels, "digest": digest(card[0]),
+                   "rounds": card[1], "converged": card[2],
+                   "trace": card[3][:card[1]].tolist(), "wall_s": card_s}
     t0 = time.perf_counter()
     hist, r, conv, trace = affinity.run_graph_affinity(
         torch.from_numpy(tv), torch.from_numpy(ti), levels=res.levels)
@@ -1086,7 +1123,7 @@ def run_solve_graph(blobs, topk_default) -> dict:
           and launches["topk_build"] == 1,
           f"preseed solve: {out['auto'].backend}, launches {launches}")
     check(same, "preseed: fused and reference builds gave other decisions")
-    return paths
+    return paths, one_process
 
 
 def gaussian_blobs_n(n):
@@ -1945,6 +1982,14 @@ def profile_all(pixels, blobs) -> None:
 # -------------------------------------------------------------- distributed
 DIST_WORLD = 4           # ranks on the one card (gloo, host copies)
 TRANSPOSE_SWEEPS = 10    # mr1d_transpose moves ~0.68 GB a rank a sweep
+# the blobs' sharded sweeps: (name, stop, exchange, sweeps); the allgather
+# exchange is held at 20 sweeps (the blobs do not converge in 50, and each
+# sweep gathers 0.78 GB through host memory)
+DIST_SWEEPS = (("allgather_converged", "converged", "allgather", 20),
+               ("psum_fixed", "fixed", "psum", 50))
+DIST_CKPT = ROOT / "build" / "chip_smoke_dist_ckpt"
+K_MEANS, KMEANS_ITERS = 16, 25   # the blobs' 16 centers, the default steps
+KMEANS_RTOL = 1e-5       # K-means centers and inertia across summations
 
 
 def digest(*tensors) -> str:
@@ -1955,14 +2000,108 @@ def digest(*tensors) -> str:
     return h.hexdigest()
 
 
-def dist_rank(pixels, blobs, device: str) -> dict:
+def ckpt_timers(sync):
+    """Time the sharded checkpoint runner's gathers, its writes (the
+    writing rank), and a resume's read and re-padding, on this rank;
+    returns the lists and a function that undoes the wrapping."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.solver import checkpointing
+
+    times = {"gather": [], "write": [], "restore": [], "repad": []}
+    saved = [(checkpointing, "all_gather"), (CheckpointManager, "save"),
+             (checkpointing, "_restore"), (checkpointing, "_repad_carry")]
+    originals = [getattr(o, a) for o, a in saved]
+
+    def timed(key, fn):
+        def wrapper(*args, **kw):
+            sync()
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            sync()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            return res
+        return wrapper
+
+    for (owner, attr), fn, key in zip(saved, originals, times):
+        setattr(owner, attr, timed(key, fn))
+
+    def undo():
+        for (owner, attr), fn in zip(saved, originals):
+            setattr(owner, attr, fn)
+    return times, undo
+
+
+def dist_checkpoint(out, workers, s3k, idx, cfg, name, stop, exchange,
+                    sweeps, sync) -> None:
+    """(c): the sharded sweeps of ``name`` checkpointed every CKPT_EVERY
+    sweeps, uninterrupted, then crashed after the second save and resumed;
+    each run's decisions, trace and this rank's state block, digested for
+    the parent to hold to the plain sharded run."""
+    import shutil
+
+    from repro_torch.runtime import faultinject
+    from repro_torch.solver import checkpointing
+
+    d = DIST_CKPT / name
+    ck = cfg.replace(max_iterations=sweeps, stop=stop, exchange=exchange,
+                     checkpoint_every=CKPT_EVERY, checkpoint_dir=str(d))
+    first = workers.axis("workers").index == 0
+    times, undo = ckpt_timers(sync)
+    try:
+        for label, kw, rule in (
+                ("checkpointed", {}, None),
+                ("crashed", {}, faultinject.Rule(
+                    "solver.sweep", nth=1, match={"kind": "sharded"})),
+                ("resumed", {"resume_from": str(d)}, None)):
+            for t in times.values():
+                t.clear()
+            inj = faultinject.FaultInjector()
+            if rule is not None:
+                inj.add(rule)
+            sync()
+            sent = workers.traffic.bytes_sent
+            t0 = time.perf_counter()
+            try:
+                with faultinject.active(inj):
+                    res = checkpointing.run_topk_checkpointed(
+                        s3k, idx, ck.replace(**kw), mesh=workers)
+            except faultinject.InjectedFault:
+                res = None
+            sync()
+            line = out[f"{name}_{label}"] = {
+                "wall_s": time.perf_counter() - t0,
+                "bytes_sent": workers.traffic.bytes_sent - sent,
+                "crashed": res is None,
+                "boundaries": inj.hits("solver.sweep"),
+                "times_ms": {k: list(v) for k, v in times.items()}}
+            if res is not None:
+                st, e, ns, conv, tr = res
+                line.update(exemplars=digest(e), n_sweeps=ns,
+                            converged=conv, trace=tr[:ns].tolist(),
+                            state=digest(*st.hap))
+                del st, e
+                if label == "checkpointed" and first:
+                    line["bytes_per_step"] = dir_bytes(d / f"step_{ns:010d}")
+    finally:
+        undo()
+        if first:
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def dist_rank(pixels, blobs, device: str, graph_path: str,
+              init_centers) -> dict:
     """One rank of solve_distributed's group: the Mandrill similarity
-    stack and the three MR backends on it, then the blobs' sharded top-k
-    build, the sharded default solve and the explicit sharded sweeps.
-    Each run is read around itself: wall, bytes this rank sent, launches."""
+    stack and the three MR backends on it; the blobs' sharded top-k build,
+    the sharded default solve and the explicit sharded sweeps, plain and
+    checkpointed (crashed and resumed); the sharded Borůvka on the blobs'
+    graph layout; ``solve(edge_list)`` at 20,000 blobs; and MapReduce
+    K-means on the blobs. Each run is read around itself: wall, bytes this
+    rank sent, launches."""
+    from repro_torch.baselines import kmeans_distributed
     from repro_torch.core import (
         make_preferences, pairwise_similarity, set_preferences, stack_levels,
     )
+    from repro_torch.graph import EdgeList, affinity
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.mesh import factor_2d, make_mesh, make_worker_mesh
     from repro_torch.sharding import dist
@@ -2028,23 +2167,74 @@ def dist_rank(pixels, blobs, device: str) -> dict:
         blobs, cfg.replace(mesh=workers)))
     out["topk_solve"].update(exemplars=res.exemplars, trace=res.trace,
                              n_sweeps=res.n_sweeps, backend=res.backend)
-    for name, stop, exchange in (("allgather_converged", "converged",
-                                  "allgather"),
-                                 ("psum_fixed", "fixed", "psum")):
-        _, e, ns, conv, tr = run(name, workers, lambda: run_topk_sharded(
-            s3k, idx, workers, max_iterations=cfg.max_iterations,
+    del res
+    for name, stop, exchange, sweeps in DIST_SWEEPS:
+        st, e, ns, conv, tr = run(name, workers, lambda: run_topk_sharded(
+            s3k, idx, workers, max_iterations=sweeps,
             damping=cfg.damping, stop=stop, exchange=exchange))
         out[name].update(exemplars=e[:, :x.shape[0]].cpu().numpy(),
+                         exemplars_digest=digest(e), state=digest(*st.hap),
                          n_sweeps=ns, converged=conv, trace=tr[:ns])
+        del st, e
+        dist_checkpoint(out, workers, s3k, idx, cfg, name, stop, exchange,
+                        sweeps, sync)
+    del s3k, idx
+    torch.cuda.empty_cache()
+
+    # (a) the sharded Borůvka on the blobs' layout, loaded, never re-sorted
+    t0 = time.perf_counter()
+    with np.load(graph_path) as g:
+        vals = torch.from_numpy(g["vals"]).to(dev)
+        gidx = torch.from_numpy(g["idx"]).to(dev)
+    sync()
+    load_s = time.perf_counter() - t0
+    hist, r, conv, trace = run("graph_sharded", workers,
+                               lambda: affinity.run_graph_affinity(
+                                   vals, gidx, levels=cfg.levels,
+                                   mesh=workers))
+    out["graph_sharded"].update(
+        n=vals.shape[0], load_s=load_s, host_reads=affinity.host_reads,
+        rounds=r,
+        converged=conv, trace=trace[:r].tolist(),
+        padded_n=hist.shape[1], digest=digest(hist[:, :vals.shape[0]]))
+    del vals, gidx, hist
+    torch.cuda.empty_cache()
+
+    # (b) the front door at 20,000 blobs: the default and sweep="sharded"
+    small, _ = gaussian_blobs_n(N_ORACLE)
+    el = run("graph_edges", workers, lambda: EdgeList.from_points(
+        torch.from_numpy(small).to(dev), K_GRAPH))
+    for sweep in ("auto", "sharded"):
+        res = run(f"graph_solve_{sweep}", workers, lambda: solve(
+            el, cfg.replace(mesh=workers, sweep=sweep)))
+        line = out[f"graph_solve_{sweep}"]
+        line.update(backend=res.backend, exemplars=digest(
+            torch.from_numpy(res.exemplars)), trace=res.trace.tolist(),
+            n_sweeps=res.n_sweeps, mesh_used=line["bytes_sent"] > 0)
+    del el
+
+    # (d) MapReduce K-means on the blobs, from the parent's centers
+    res = run("kmeans_distributed", workers, lambda: kmeans_distributed(
+        x, K_MEANS, workers, iterations=KMEANS_ITERS,
+        init_centers=torch.from_numpy(init_centers).to(dev)))
+    out["kmeans_distributed"].update(
+        labels=res.labels.cpu().numpy() if dist.rank() == 0 else None,
+        labels_digest=digest(res.labels), centers=res.centers.cpu().numpy(),
+        inertia=float(res.inertia))
     return out
 
 
-def run_solve_distributed(pixels, blobs, topk_default) -> dict:
-    """The MR backends and the sharded top-k path on DIST_WORLD ranks that
-    share the one card, against the one-process paths on the same card;
-    then ``python -m repro_torch.launch.cluster --workers 4``. Returns the
-    ranks' ``similarity`` launches by path."""
+def run_solve_distributed(pixels, blobs, topk_default, graph_one,
+                          init_centers) -> dict:
+    """The MR backends, the sharded top-k path (plain and checkpointed),
+    the sharded Borůvka, ``solve(edge_list)`` and MapReduce K-means on
+    DIST_WORLD ranks that share the one card, against the one-process
+    paths on the same card (``graph_one``: solve_graph's round loop on the
+    blobs' layout); then ``python -m repro_torch.launch.cluster --workers
+    4``. Returns the ranks' ``similarity`` launches by path."""
+    from repro_torch.baselines import kmeans
     from repro_torch.core import comm_bytes_per_iteration
+    from repro_torch.graph import EdgeList
     from repro_torch.solver import SolveConfig, solve, topk
     from repro_torch.solver.topk_sharded import comm_bytes_per_sweep
 
@@ -2066,18 +2256,29 @@ def run_solve_distributed(pixels, blobs, topk_default) -> dict:
     x = torch.from_numpy(blobs).to(DEVICE)
     s3k, idx = topk.build_from_points(x, K_TOPK, cfg.levels)   # fused
     fused_digest = digest(s3k[0, :, 1:], idx[:, 1:])
-    oracle = {stop: topk.run_topk(
-        s3k, idx, max_iterations=cfg.max_iterations, damping=cfg.damping,
-        stop=stop) for stop in ("fixed", "converged")}
-    oracle = {stop: (e.cpu().numpy(), ns, conv, tr[:ns])
-              for stop, (_, e, ns, conv, tr) in oracle.items()}
-    del x, s3k, idx
+    oracle = {}
+    for name, stop, _, sweeps in DIST_SWEEPS:
+        _, e, ns, conv, tr = topk.run_topk(
+            s3k, idx, max_iterations=sweeps, damping=cfg.damping, stop=stop)
+        oracle[name] = (e.cpu().numpy(), ns, conv, tr[:ns])
+    del s3k, idx
+    small, _ = gaussian_blobs_n(N_ORACLE)
+    el = EdgeList.from_points(torch.from_numpy(small).to(DEVICE), K_GRAPH)
+    graph_small = solve(el, device=DEVICE)
+    del el
+    km = kmeans(x, K_MEANS, iterations=KMEANS_ITERS,
+                init_centers=torch.from_numpy(init_centers).to(DEVICE))
+    km = (km.labels.cpu().numpy(), km.centers.cpu().numpy(),
+          float(km.inertia))
+    del x
     torch.cuda.empty_cache()
 
     # -- the group
     t0 = time.perf_counter()
-    ranks = dist_rank_all(pixels, blobs)
+    ranks = dist_rank_all(pixels, blobs, init_centers)
     spawn_wall = time.perf_counter() - t0
+    import shutil
+    shutil.rmtree(DIST_CKPT, ignore_errors=True)
     r0 = ranks[0]
     emit({"phase": "solve_distributed", "world": r0["world"],
           "transport": r0["transport"], "grid": r0["grid"],
@@ -2149,10 +2350,8 @@ def run_solve_distributed(pixels, blobs, topk_default) -> dict:
     check(sol["backend"] == "dense_topk",
           f"the default solve in a group chose {sol['backend']}")
     check(same, "sharded solve: decisions differ from the default solve")
-    for name, stop, exchange in (("allgather_converged", "converged",
-                                  "allgather"), ("psum_fixed", "fixed",
-                                                 "psum")):
-        e, ns, conv, tr = oracle[stop]
+    for name, stop, exchange, sweeps in DIST_SWEEPS:
+        e, ns, conv, tr = oracle[name]
         got = r0[name]
         equal = all(np.array_equal(r[name]["exemplars"], e)
                     and r[name]["n_sweeps"] == ns
@@ -2160,7 +2359,7 @@ def run_solve_distributed(pixels, blobs, topk_default) -> dict:
         trace_equal = np.array_equal(got["trace"], tr)
         cluster_bytes = sum(per_rank(name, "bytes_sent"))
         emit({"phase": "solve_distributed", "step": "sharded sweeps",
-              "exchange": exchange, "stop": stop,
+              "exchange": exchange, "stop": stop, "sweeps": sweeps,
               "wall_s": per_rank(name, "wall_s"),
               "n_sweeps": got["n_sweeps"], "converged": got["converged"],
               "decisions_equal_one_process": equal,
@@ -2171,12 +2370,19 @@ def run_solve_distributed(pixels, blobs, topk_default) -> dict:
                   nb, K_TOPK, cfg.levels, DIST_WORLD, exchange)})
         check(equal and trace_equal,
               f"sharded {exchange} {stop}: decisions differ")
+        check_dist_checkpoint(ranks, name, stop, exchange, sweeps)
+
+    graph_checks(ranks, graph_one, graph_small)
+    kmeans_checks(ranks, km)
     launches = {
         "solve_distributed: sharded top-k solve (4 ranks)":
             [r["topk_solve"]["launches"]["similarity"] for r in ranks],
         "solve_distributed: sharded build (4 ranks)":
             [r["topk_build_sharded"]["launches"]["similarity"]
              for r in ranks]}
+    launches["solve_distributed: EdgeList.from_points 20,000 (4 ranks, "
+             "sharded build)"] = [r["graph_edges"]["launches"]["similarity"]
+                                  for r in ranks]
     for name in ("topk_solve", "topk_build_sharded"):
         for r in ranks:
             counts = r[name]["launches"]
@@ -2203,10 +2409,320 @@ def run_solve_distributed(pixels, blobs, topk_default) -> dict:
     return launches
 
 
-def dist_rank_all(pixels, blobs) -> list:
+def check_dist_checkpoint(ranks, name, stop, exchange, sweeps) -> None:
+    """(c): every rank's checkpointed, crashed and resumed runs against its
+    plain sharded run of the same exchange and depth: decisions, trace,
+    sweep count, flag and its state block bit-equal; the crash after the
+    second save; the resumed run fired the remaining boundaries only."""
+    r0 = ranks[0]
+    plain_keys = ("exemplars_digest", "n_sweeps", "converged", "state")
+    equal = {}
+    for label in ("checkpointed", "resumed"):
+        equal[label] = all(
+            [r[f"{name}_{label}"][k] for k in ("exemplars", "n_sweeps",
+                                                "converged", "state")]
+            == [r[name][k] for k in plain_keys]
+            and r[f"{name}_{label}"]["trace"] == r[name]["trace"].tolist()
+            for r in ranks)
+    crashed = r0[f"{name}_crashed"]
+    resumed = r0[f"{name}_resumed"]
+    whole = r0[f"{name}_checkpointed"]
+    saves = whole["boundaries"]
+    # seven gathers a boundary (six state fields, the exemplars), then the
+    # result's exemplars once
+    gather_ms = [[sum(r[f"{name}_checkpointed"]["times_ms"]["gather"][
+        7 * i:7 * i + 7]) for i in range(saves)] for r in ranks]
+    emit({"phase": "solve_distributed", "step": "checkpointed sharded sweeps",
+          "exchange": exchange, "stop": stop, "sweeps": sweeps,
+          "every": CKPT_EVERY, "n_sweeps": whole["n_sweeps"],
+          "converged": whole["converged"],
+          "wall_s": {label: [r[f"{name}_{label}"]["wall_s"] for r in ranks]
+                     for label in ("checkpointed", "crashed", "resumed")},
+          "plain_wall_s": [r[name]["wall_s"] for r in ranks],
+          "bytes_sent": {label: [r[f"{name}_{label}"]["bytes_sent"]
+                                 for r in ranks]
+                         for label in ("checkpointed", "crashed", "resumed")},
+          "gather_ms_a_save": gather_ms,
+          "write_ms_a_save": whole["times_ms"]["write"],
+          "bytes_per_step": whole["bytes_per_step"],
+          "resume_ms": {"read": [r[f"{name}_resumed"]["times_ms"]["restore"]
+                                 for r in ranks],
+                        "repad": [r[f"{name}_resumed"]["times_ms"]["repad"]
+                                  for r in ranks]},
+          "boundaries": {"checkpointed": saves,
+                         "crashed": crashed["boundaries"],
+                         "resumed": resumed["boundaries"]},
+          "bit_equal_to_plain": equal})
+    check(all(r[f"{name}_crashed"]["crashed"] for r in ranks)
+          and crashed["boundaries"] == 2,
+          f"{name}: the injected crash did not fire at the second save")
+    check(saves == -(-whole["n_sweeps"] // CKPT_EVERY)
+          and len(whole["times_ms"]["gather"]) == 7 * saves + 1
+          and len(whole["times_ms"]["write"]) == saves
+          and resumed["boundaries"] == saves - 2,
+          f"{name}: {saves} boundaries, {resumed['boundaries']} resumed")
+    check(all(equal.values()),
+          f"{name}: checkpointed sharded runs differ from the plain run: "
+          f"{equal}")
+
+
+def graph_checks(ranks, graph_one, graph_small) -> None:
+    """(a) and (b): the sharded Borůvka at the blobs against the card's
+    one-process loop; ``solve(edge_list)`` in the group at 20,000 blobs,
+    by default and with ``sweep="sharded"``, against one process."""
+    g = [r["graph_sharded"] for r in ranks]
+    same = all(x["digest"] == graph_one["digest"]
+               and x["rounds"] == graph_one["rounds"]
+               and x["converged"] == graph_one["converged"]
+               and x["trace"] == graph_one["trace"] for x in g)
+    emit({"phase": "solve_distributed", "step": "sharded Borůvka",
+          "n": g[0]["n"], "padded_n": g[0]["padded_n"], "levels":
+          graph_one["levels"], "rounds": g[0]["rounds"],
+          "host_reads": [x["host_reads"] for x in g],
+          "load_s": [x["load_s"] for x in g],
+          "wall_s": [x["wall_s"] for x in g],
+          "one_process_wall_s": graph_one["wall_s"],
+          "bytes_sent": [x["bytes_sent"] for x in g],
+          "launches": [x["launches"] for x in g],
+          "labels_rounds_trace_equal_one_process": same})
+    check(same, "sharded Borůvka differs from the one-process loop")
+    check(all(x["host_reads"] == x["rounds"] for x in g),
+          "sharded Borůvka: not one host read a round")
+    check(all(not any(x["launches"].values()) for x in g),
+          "sharded Borůvka launched a kernel")
+    one = graph_small
+    for sweep in ("auto", "sharded"):
+        lines = [r[f"graph_solve_{sweep}"] for r in ranks]
+        same = all(x["exemplars"] == digest(torch.from_numpy(one.exemplars))
+                   and x["trace"] == one.trace.tolist()
+                   and x["n_sweeps"] == one.n_sweeps for x in lines)
+        emit({"phase": "solve_distributed", "step": "solve(edge_list)",
+              "n": N_ORACLE, "sweep": sweep, "route": lines[0]["backend"],
+              "mesh_used": [x["mesh_used"] for x in lines],
+              "wall_s": [x["wall_s"] for x in lines],
+              "bytes_sent": [x["bytes_sent"] for x in lines],
+              "edge_list_wall_s": [r["graph_edges"]["wall_s"] for r in ranks],
+              "rounds": lines[0]["n_sweeps"],
+              "decisions_equal_one_process": same})
+        check(all(x["backend"] == "graph_affinity" for x in lines),
+              f"solve(edge_list) in the group chose {lines[0]['backend']}")
+        check(all(x["mesh_used"] == (sweep == "sharded") for x in lines),
+              f"solve(edge_list, sweep={sweep!r}): mesh used "
+              f"{[x['mesh_used'] for x in lines]}")
+        check(same, f"solve(edge_list, sweep={sweep!r}) in the group "
+                    "differs from one process")
+    # in a group of 4 the edge list's build (N >= 8,192) is the sharded
+    # reference scan, whose tiles the similarity kernel computes
+    counts = [r["graph_edges"]["launches"] for r in ranks]
+    check(all(c["similarity"] > 0 and sum(c.values()) == c["similarity"]
+              for c in counts),
+          f"EdgeList.from_points in the group: launches {counts}")
+
+
+def kmeans_checks(ranks, km) -> None:
+    """(d): MapReduce K-means in the group against one-process K-means on
+    the card from the same centers: labels equal, centers and inertia
+    within KMEANS_RTOL (the ranks' partial sums associate otherwise)."""
+    labels, centers, inertia = km
+    lines = [r["kmeans_distributed"] for r in ranks]
+    scale = float(np.abs(centers).max())
+    center_err = max(float(np.abs(x["centers"] - centers).max())
+                     for x in lines)
+    inertia_err = max(abs(x["inertia"] - inertia) for x in lines)
+    same = (np.array_equal(lines[0]["labels"], labels)
+            and len({x["labels_digest"] for x in lines}) == 1)
+    emit({"phase": "solve_distributed", "step": "kmeans_distributed",
+          "n": len(labels), "k": K_MEANS, "iterations": KMEANS_ITERS,
+          "wall_s": [x["wall_s"] for x in lines],
+          "bytes_sent": [x["bytes_sent"] for x in lines],
+          "labels_equal_one_process": same,
+          "centers_max_rel_err": center_err / scale,
+          "inertia_rel_err": inertia_err / abs(inertia),
+          "rtol": KMEANS_RTOL})
+    check(same, "kmeans_distributed: labels differ from one process")
+    check(center_err <= KMEANS_RTOL * scale
+          and inertia_err <= KMEANS_RTOL * abs(inertia),
+          f"kmeans_distributed: centers {center_err / scale:.2e}, inertia "
+          f"{inertia_err / abs(inertia):.2e} relative")
+
+
+# ---------------------------------------------------------------- baselines
+CURATE_BASES, CURATE_COPIES, CURATE_D = 512, 8, 1_024
+# the bases' scale: S's rounding (which cuBLAS and the CPU's BLAS do
+# differently, ROADMAP C2) grows with |x|^2, the near-copies' spread with
+# the noise; at 0.25 the batch is as well-conditioned as
+# tests/test_pipeline.py's (within-copy spread ~500x S's rounding); at 1.0
+# the card and the CPU kept other copies in a few groups (PERF.md)
+CURATE_SCALE, CURATE_NOISE = 0.25, 0.02
+# qwen3-moe-235b-a22b's router (configs/registry.py: 128 experts), over
+# 4,096 tokens
+N_EXPERTS, N_TOKENS = 128, 4_096
+
+
+def timed_sync(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def run_baselines(blobs, truth, init_centers) -> dict:
+    """(e) K-means and (f) HK-Means on the 200,000 blobs, (g) the paper's
+    Fig 5.1 comparison, (h) the curation hook and (i) the expert-affinity
+    hook, each on the card beside the CPU port. Returns the ``topk_build``
+    launches of the Fig 5.1 top-k solves."""
+    from repro_torch.baselines import hierarchical_kmeans, kmeans
+    from repro_torch.baselines.canopy import auto_thresholds, canopy_centers
+    from repro_torch.core import link_hierarchy, purity
+    from repro_torch.core.expert_affinity import cluster_experts
+    from repro_torch.data import aggregation_like, gaussian_blobs, two_moons
+    from repro_torch.data.pipeline import hap_curate_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solver import solve
+
+    t_phase = time.perf_counter()
+    # (e) K-means from the seed-0 draw, on the card and on the CPU
+    x = torch.from_numpy(blobs).to(DEVICE)
+    init = torch.from_numpy(init_centers)
+    run = lambda pts: kmeans(pts, K_MEANS, iterations=KMEANS_ITERS,
+                             init_centers=init.to(pts.device))
+    timed_sync(lambda: run(x))
+    card, card_s = timed_sync(lambda: run(x))
+    t0 = time.perf_counter()
+    cpu = run(torch.from_numpy(blobs))
+    cpu_s = time.perf_counter() - t0
+    apart = float((card.labels.cpu() != cpu.labels).float().mean())
+    emit({"phase": "baselines", "method": "kmeans", "n": len(blobs),
+          "k": K_MEANS, "iterations": KMEANS_ITERS, "init": "seed 0",
+          "wall_s": card_s, "cpu_wall_s": cpu_s,
+          "purity": purity(card.labels.cpu().numpy(), truth),
+          "inertia": float(card.inertia), "cpu_inertia": float(cpu.inertia),
+          "labels_apart_from_cpu": apart})
+    check(apart <= MAX_MISMATCH,
+          f"kmeans: {apart:.2%} of labels differ from the CPU's")
+
+    # (f) HK-Means: canopy on the host, K-means on the card
+    t0 = time.perf_counter()
+    seeds = canopy_centers(blobs, *auto_thresholds(blobs, 0), 0)
+    canopy_s = time.perf_counter() - t0
+    hk, hk_s = timed_sync(lambda: hierarchical_kmeans(blobs, 3, branch=3,
+                                                device=DEVICE))
+    top = kmeans(x, max(2, len(seeds)), iterations=KMEANS_ITERS,
+                 init_centers=torch.from_numpy(seeds).to(DEVICE))
+    nested = all(len(np.unique(coarse[fine == c])) == 1
+                 for fine, coarse in zip(hk.labels[:-1], hk.labels[1:])
+                 for c in np.unique(fine))
+    emit({"phase": "baselines", "method": "hierarchical_kmeans",
+          "n": len(blobs), "levels": 3, "branch": 3, "wall_s": hk_s,
+          "canopy_host_s": canopy_s, "kmeans_and_rest_s": hk_s - canopy_s,
+          "canopies": len(seeds), "n_clusters": hk.n_clusters.tolist(),
+          "purity": [purity(l, truth) for l in hk.labels],
+          "levels_nest": nested})
+    check(nested, "HK-Means: a finer cluster straddles two coarser ones")
+    check(np.array_equal(hk.labels[-1], top.labels.cpu().numpy()),
+          "HK-Means: top level is not K-means from the canopy seeds")
+    del x, card, cpu, top
+
+    # (g) Fig 5.1: bench_purity.py's methods on its DATASETS
+    launches = {}
+    for name, (pts, y) in (
+            ("aggregation", aggregation_like()),
+            ("blobs", gaussian_blobs(n=600, k=6, seed=2, spread=0.5)),
+            ("moons", two_moons(n=400, seed=3))):
+        rows = {}
+        for where in (DEVICE, "cpu"):
+            kw = dict(levels=3, max_iterations=40, damping=0.7,
+                      preference="median", device=where)
+            reset_launch_counts()
+            hap, hap_s = timed_sync(lambda: solve(
+                pts, backend="dense_parallel", **kw))
+            top, top_s = timed_sync(lambda: solve(
+                pts, backend="dense_topk", k=32, **kw))
+            hkm, hk_s = timed_sync(lambda: hierarchical_kmeans(
+                pts, 3, branch=3, device=where))
+            if where == DEVICE:
+                path = f"baselines: Fig 5.1 dense_topk k = 32, {name}"
+                launches[path] = launch_counts()["topk_build"]
+                check(launches[path] == 1,
+                      f"{path}: topk_build launched {launches[path]}")
+            rows[where] = {"hap": hap, "topk": top, "hk": hkm,
+                           "s": [hap_s, top_s, hk_s]}
+        table = {}
+        for where, r in rows.items():
+            hier = {m: link_hierarchy(r[m].exemplars) for m in ("hap", "topk")}
+            table[where] = {
+                m: [[purity(hier[m].labels[l], y), int(hier[m].n_clusters[l])]
+                    for l in range(3)] for m in hier}
+            table[where]["hk"] = [[purity(r["hk"].labels[l], y),
+                                   int(r["hk"].n_clusters[l])]
+                                  for l in range(3)]
+            table[where]["wall_s"] = dict(zip(("hap", "topk", "hk"), r["s"]))
+        card, cpu = rows[DEVICE], rows["cpu"]
+        same = {m: bool(np.array_equal(card[m].exemplars, cpu[m].exemplars))
+                for m in ("hap", "topk")}
+        same["hk_top"] = bool(np.array_equal(card["hk"].labels[-1],
+                                             cpu["hk"].labels[-1]))
+        emit({"phase": "baselines", "step": "Fig 5.1", "dataset": name,
+              "n": len(pts), "purity_and_clusters_by_level":
+              {"card": table[DEVICE], "cpu": table["cpu"]},
+              "equal_on_card_and_cpu": same})
+        check(all(same.values()),
+              f"Fig 5.1 {name}: card and CPU differ: {same}")
+
+    # (h) curation: 512 seeded bases x 8 near-copies, width 1,024
+    rng = np.random.default_rng(0)
+    base = CURATE_SCALE * rng.standard_normal(
+        (CURATE_BASES, CURATE_D)).astype(np.float32)
+    batch = (np.repeat(base, CURATE_COPIES, axis=0)
+             + CURATE_NOISE * rng.standard_normal(
+                 (CURATE_BASES * CURATE_COPIES, CURATE_D)).astype(np.float32))
+    hap_curate_batch(batch, device=DEVICE)
+    keep, keep_s = timed_sync(lambda: hap_curate_batch(batch, device=DEVICE))
+    t0 = time.perf_counter()
+    keep_cpu = hap_curate_batch(batch, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same = bool(np.array_equal(keep, keep_cpu))
+    groups = np.unique(keep // CURATE_COPIES)
+    emit({"phase": "baselines", "step": "hap_curate_batch",
+          "n": len(batch), "d": CURATE_D, "base_scale": CURATE_SCALE,
+          "noise": CURATE_NOISE, "kept": len(keep),
+          "groups_kept": len(groups),
+          "kept_apart_from_cpu": len(set(keep) ^ set(keep_cpu)),
+          "wall_s": keep_s, "cpu_wall_s": cpu_s, "kept_equal_cpu": same})
+    check(same, "hap_curate_batch: the card kept other indices")
+
+    # (i) expert affinity at 128 experts: planted co-activated pairs
+    rng = np.random.default_rng(1)
+    probs = rng.random((N_TOKENS, N_EXPERTS)).astype(np.float32) * 0.05
+    hot = rng.integers(0, N_EXPERTS // 2, N_TOKENS)
+    probs[np.arange(N_TOKENS), 2 * hot] += 0.5
+    probs[np.arange(N_TOKENS), 2 * hot + 1] += 0.5
+    probs /= probs.sum(1, keepdims=True)
+    cluster_experts(probs, device=DEVICE)
+    res, res_s = timed_sync(lambda: cluster_experts(probs, device=DEVICE))
+    t0 = time.perf_counter()
+    res_cpu = cluster_experts(probs, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    pairs = bool((res.labels[0::2] == res.labels[1::2]).all())
+    same = bool(np.array_equal(res.labels, res_cpu.labels))
+    emit({"phase": "baselines", "step": "cluster_experts",
+          "experts": N_EXPERTS, "tokens": N_TOKENS,
+          "n_clusters": res.n_clusters, "redundancy": res.redundancy,
+          "wall_s": res_s, "cpu_wall_s": cpu_s,
+          "planted_pairs_share_a_cluster": pairs, "labels_equal_cpu": same})
+    check(same and pairs, "cluster_experts: card differs from the CPU, or "
+                          "a planted pair was split")
+    emit({"phase": "baselines", "step": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def dist_rank_all(pixels, blobs, init_centers) -> list:
     from repro_torch.sharding import dist
     return dist.spawn(dist_rank, DIST_WORLD, device=DEVICE,
-                      args=(pixels, blobs, DEVICE))
+                      args=(pixels, blobs, DEVICE, str(GRAPH_LAYOUT),
+                            init_centers))
 
 
 def main() -> int:
@@ -2240,7 +2756,7 @@ def main() -> int:
           "cached": info.cached, "ptxas": info.ptxas})
 
     pixels = image_to_points(mandrill_like_image(103, 103))
-    blobs, _ = gaussian_blobs(n=N_BLOBS, k=16, seed=0, spread=0.5)
+    blobs, truth = gaussian_blobs(n=N_BLOBS, k=16, seed=0, spread=0.5)
     x = torch.from_numpy(pixels).to(DEVICE)
     summary = run_kernels(x)
     del x
@@ -2257,9 +2773,16 @@ def main() -> int:
     run_solve_streaming(blobs)
     coarsen_res = run_solve_coarsen()
     paths = {"dense_topk (default solve)": launches["topk_build"]}
-    paths.update(run_solve_graph(blobs, topk_res))
-    similarity_paths = run_solve_distributed(pixels, blobs, topk_res)
+    graph_paths, graph_one = run_solve_graph(blobs, topk_res)
+    paths.update(graph_paths)
+    from repro_torch.baselines import kmeans
+    # the port's default initial centers for seed 0 (no step taken)
+    init_centers = kmeans(torch.from_numpy(blobs).to(DEVICE), K_MEANS,
+                          iterations=0, seed=0).centers.cpu().numpy()
+    similarity_paths = run_solve_distributed(pixels, blobs, topk_res,
+                                             graph_one, init_centers)
     del topk_res
+    paths.update(run_baselines(blobs, truth, init_centers))
     paths.update(run_solve_checkpoint(blobs, coarsen_res))
     paths.update(run_serve(smi))
     emit({"phase": "launches", "topk_build_by_path": paths})

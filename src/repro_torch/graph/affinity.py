@@ -33,9 +33,18 @@ rounds before the stop round (level 0 finest, earlier snapshots padded
 with the initial all-singletons labeling when the loop stops in fewer
 than ``levels`` rounds).
 
-The reference's sharded program (rows blocked over a ``workers`` mesh,
-``pmax``/``pmin`` exchanges) comes with the distributed backends
-(``ROADMAP.md`` queue A.7).
+Execution shapes, as in the reference:
+
+* one device: the round loop over the whole (N, D) layout;
+* sharded (``mesh``, a 1-D ``workers`` mesh over the ranks of a
+  ``torch.distributed`` group): the layout is padded to a rank multiple
+  with inert rows (``pad_rows``) and each rank owns a row block; labels
+  stay replicated. A round's selection is two collectives: ``pmax`` of
+  the per-cluster best weight (an f32 max, exact in any order), then each
+  rank scores its own achievers of that global best and ``pmin`` reduces
+  the candidate destination-leader (an int32 min, also exact). Every rank
+  therefore holds the one-device loop's labels bit for bit, reads the
+  same stop-test value each round, and stops on the same round.
 """
 from __future__ import annotations
 
@@ -44,6 +53,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import dist
+from repro_torch.sharding.partitioning import row_block
+
+AXIS = "workers"
 
 #: host reads of the last ``run_graph_affinity`` call: one per round
 host_reads = 0
@@ -77,14 +91,15 @@ def _hook_and_jump(best_t: torch.Tensor, n_total: int,
     return parent
 
 
-def _select_fn(vals, idx, labels, n_total):
-    """Per-cluster best weight over the (N, D) layout: edges whose
-    endpoints share a leader (including the padding's self-pointing
-    slots) are inactive (-inf)."""
+def _select_fn(vals, idx, labels, rows, n_total):
+    """Per-cluster best weight over one row block: ``rows`` are the
+    block's global node ids; edges whose endpoints share a leader
+    (including the padding's self-pointing slots) are inactive (-inf)."""
     b, d = vals.shape
-    dst_lbl = labels[idx]                           # (N, D) relabeled edges
-    active = dst_lbl != labels[:, None]
-    seg = labels[:, None].expand(b, d).reshape(-1)
+    row_lbl = labels[rows]                          # (B,) leader per row
+    dst_lbl = labels[idx]                           # (B, D) relabeled edges
+    active = dst_lbl != row_lbl[:, None]
+    seg = row_lbl[:, None].expand(b, d).reshape(-1)
     w = torch.where(active, vals, float("-inf")).reshape(-1)
     best_w = torch.full((n_total,), float("-inf"), dtype=w.dtype,
                         device=w.device).scatter_reduce(
@@ -102,21 +117,24 @@ def _candidates(seg, w, best_w, dst_flat, n_total):
         0, seg, cand, reduce="amin", include_self=True)
 
 
-def _loop(select, levels: int, n: int, max_rounds: int, target: int,
-          jump_iters: int, device):
+def _loop(select, levels: int, n: int, n_real: int, max_rounds: int,
+          target: int, jump_iters: int, device):
     """The round loop: stop at the round budget, at ``target`` clusters or
-    when a round relabels nothing. Returns ``(hist, rounds, converged,
-    trace)`` with ``hist`` a list of the last ``levels`` label snapshots."""
+    when a round relabels nothing; only the first ``n_real`` nodes count
+    (the rest are padding). Returns ``(hist, rounds, converged, trace)``
+    with ``hist`` a list of the last ``levels`` label snapshots."""
     global host_reads
     ids = torch.arange(n, device=device)
+    real = ids < n_real
     labels = ids
     hist = [labels] * levels
     trace = np.zeros((max_rounds,), np.int32)
-    r, changes, clusters = 0, 1, n
+    r, changes, clusters = 0, 1, n_real
     while r < max_rounds and clusters > target and (r == 0 or changes > 0):
         parent = _hook_and_jump(select(labels), n, jump_iters)
         new = parent[labels]
-        stats = torch.stack([(new != labels).sum(), (new == ids).sum()])
+        stats = torch.stack([((new != labels) & real).sum(),
+                             ((new == ids) & real).sum()])
         changes, clusters = stats.tolist()       # the round's host read
         host_reads += 1
         hist = hist[1:] + [new]
@@ -125,6 +143,22 @@ def _loop(select, levels: int, n: int, max_rounds: int, target: int,
         r += 1
     converged = clusters <= target or (r > 0 and changes == 0)
     return hist, r, converged, trace
+
+
+def pad_rows(vals: torch.Tensor, idx: torch.Tensor, multiple: int):
+    """Pad the (N, D) row layout to a rank multiple with inert rows: every
+    padded slot points at its own (padded) row, so the padding is an
+    isolated singleton forever and never enters a real selection (its
+    edges are inactive, and no real row points at it). Returns ``(vals,
+    idx, original N)``; a layout that already splits comes back as it
+    is."""
+    n, d = vals.shape
+    pad = (-n) % multiple
+    if pad == 0:
+        return vals, idx, n
+    dummy = torch.arange(n, n + pad, dtype=idx.dtype, device=idx.device)
+    return (torch.cat([vals, vals.new_zeros((pad, d))]),
+            torch.cat([idx, dummy[:, None].expand(pad, d)]), n)
 
 
 def run_graph_affinity(vals, idx, *, levels: int = 1,
@@ -137,25 +171,52 @@ def run_graph_affinity(vals, idx, *, levels: int = 1,
     as tensors (the loop runs on their device) or numpy arrays (on the
     CPU). Returns ``(hist, n_rounds, converged, trace)`` — ``hist`` the
     (levels, N) int32 label-snapshot tensor (level 0 finest), ``trace`` the
-    per-round relabel count (numpy, slice by ``n_rounds``)."""
+    per-round relabel count (numpy, slice by ``n_rounds``).
+
+    ``mesh`` (a 1-D ``workers`` mesh; every rank passes the whole layout)
+    selects the sharded program; its ``hist`` is in the padded N' (the
+    engine strips the padding), and every result equals the one-device
+    loop's bit for bit."""
     global host_reads
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded graph_affinity program comes with the distributed "
-            "backends (ROADMAP.md queue A.7); pass mesh=None")
     vals = torch.as_tensor(vals).float()
     idx = torch.as_tensor(idx, device=vals.device).long()
     n, _ = vals.shape
     max_rounds = default_rounds(n) if max_rounds is None else int(max_rounds)
     target = max(int(target), 1)
+    jump = _jump_iters(n)
+    if mesh is None or mesh.shape.get(AXIS, 1) == 1:
+        rows = torch.arange(n, device=vals.device)
 
-    def select(labels):
-        seg, w, best_w, dst = _select_fn(vals, idx, labels, n)
-        return _candidates(seg, w, best_w, dst, n)
+        def select(labels):
+            seg, w, best_w, dst = _select_fn(vals, idx, labels, rows, n)
+            return _candidates(seg, w, best_w, dst, n)
+
+        n_total, n_real = n, n
+    else:
+        if tuple(mesh.axis_names) != (AXIS,):
+            raise ValueError(
+                f"graph_affinity needs a 1-D mesh with axis {AXIS!r} "
+                f"(got axes {tuple(mesh.axis_names)}); build one with "
+                "repro_torch.launch.mesh.make_worker_mesh()")
+        ax = mesh.axis(AXIS)
+        vals_p, idx_p, n_real = pad_rows(vals, idx, ax.size)
+        n_total = vals_p.shape[0]
+        vals_loc = row_block(vals_p, mesh, AXIS)
+        idx_loc = row_block(idx_p, mesh, AXIS)
+        b = vals_loc.shape[0]
+        rows = ax.index * b + torch.arange(b, device=vals.device)
+
+        def select(labels):
+            seg, w, best_w_loc, dst = _select_fn(vals_loc, idx_loc, labels,
+                                                 rows, n_total)
+            best_w = dist.pmax(best_w_loc, ax)           # exact f32 max
+            cand = _candidates(seg, w, best_w, dst, n_total)
+            # exact int32 min: candidates are node ids < n_total
+            return dist.pmin(cand.to(torch.int32), ax).long()
 
     host_reads = 0
-    hist, r, conv, trace = _loop(select, levels, n, max_rounds, target,
-                                 _jump_iters(n), vals.device)
+    hist, r, conv, trace = _loop(select, levels, n_total, n_real, max_rounds,
+                                 target, jump, vals.device)
     return torch.stack(hist).to(torch.int32), r, conv, trace
 
 

@@ -192,13 +192,13 @@ class EdgeList:
         import torch
 
         from repro_torch.solver.config import SolveConfig
-        from repro_torch.solver.engine import _resolve_device
+        from repro_torch.solver.engine import resolve_device
         from repro_torch.solver.topk_build import build_topk_similarity
 
         cfg = config or SolveConfig()
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.asarray(x, np.float32)).to(
-                _resolve_device(cfg))
+                resolve_device(cfg.device))
         vals, idx = build_topk_similarity(x.float(), k, cfg)
         return cls.from_topk(vals.cpu().numpy(), idx.cpu().numpy(),
                              x.shape[0])

@@ -196,6 +196,12 @@ def all_to_all(x: torch.Tensor, ax: Axis, *, split_axis: int,
     return torch.cat(blocks, dim=concat_axis).to(x.device)
 
 
+def barrier(ax: Axis) -> None:
+    """Wait until every rank of the axis gets here (one rank: no-op)."""
+    if ax.size > 1:
+        dist.barrier(group=ax.group)
+
+
 def _reduce(x: torch.Tensor, ax: Axis, fn: Callable) -> torch.Tensor:
     if ax.size == 1:
         return x
@@ -258,7 +264,16 @@ def _rank_main(rank_: int, fn: Callable, args: tuple, world: int, tmp: str,
     _start(choose_transport(dev, world, transport_), dev, store=store,
            rank=rank_, world_size=world)
     try:
+        # start together: a rank that fails at once must not close its
+        # connections under a peer still connecting to it
+        dist.barrier()
         torch.save(fn(*args), os.path.join(tmp, f"rank{rank_}.pt"))
+        # leave together: a rank that closes its connections while a peer
+        # may still be reading from them can reset them under the peer
+        try:
+            dist.barrier()
+        except RuntimeError:  # gloo: "Connection closed by peer"
+            pass      # a peer failed and left: ``spawn`` raises its error
     finally:
         dist.destroy_process_group()
 

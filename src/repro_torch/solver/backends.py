@@ -66,6 +66,20 @@ register_backend(BackendSpec(
     doc="MR Jacobi schedule with the CUDA kernels in the hot loop"))
 
 
+def _sweep_mesh(cfg: SolveConfig, n: int):
+    """The 1-D ``workers`` mesh a sweep or round loop over ``n`` rows
+    shards over, or None for the one-device loop: ``cfg.sweep`` resolved
+    against the group's rank count, and a one-rank mesh detours to the
+    one-device loop, the same arithmetic without the exchanges (the
+    reference's detour)."""
+    if topk_sharded.resolve_sweep(cfg.sweep, n=n,
+                                  n_devices=world_size()) != "sharded":
+        return None
+    from repro_torch.solver.engine import prepare_mesh
+    mesh, _ = prepare_mesh("1d", cfg)
+    return mesh if mesh.shape["workers"] > 1 else None
+
+
 def _topk_run(data, cfg: SolveConfig) -> RawBackendResult:
     """Compressed-layout Jacobi sweeps; O(L*N*k) state instead of
     O(L*N^2). Takes raw points (the top-k build; the N x N matrix is never
@@ -98,15 +112,7 @@ def _topk_run(data, cfg: SolveConfig) -> RawBackendResult:
             metric=cfg.metric, preference=cfg.preference, seed=cfg.seed,
             config=cfg)
 
-    mesh = None
-    if topk_sharded.resolve_sweep(cfg.sweep, n=n,
-                                  n_devices=world_size()) == "sharded":
-        from repro_torch.solver.engine import prepare_mesh
-        mesh, _ = prepare_mesh("1d", cfg)
-        if mesh.shape["workers"] == 1:
-            # one rank shards nothing: the one-device loop is the same
-            # arithmetic without the exchanges (the reference's detour)
-            mesh = None
+    mesh = _sweep_mesh(cfg, n)
     if cfg.checkpoint_every > 0 or cfg.resume_from:
         from repro_torch.solver import checkpointing
         state, e, n_sweeps, conv, trace = \
@@ -116,13 +122,13 @@ def _topk_run(data, cfg: SolveConfig) -> RawBackendResult:
             s3k, idx, mesh, max_iterations=cfg.max_iterations,
             damping=cfg.damping, kappa=cfg.kappa, s_mode=cfg.s_mode,
             stop=cfg.stop, patience=cfg.patience, exchange=cfg.exchange)
-        if cfg.keep_state:
-            state = topk_sharded.gather_state(state, mesh)
     else:
         state, e, n_sweeps, conv, trace = topk.run_topk(
             s3k, idx, max_iterations=cfg.max_iterations, damping=cfg.damping,
             kappa=cfg.kappa, s_mode=cfg.s_mode, stop=cfg.stop,
             patience=cfg.patience)
+    if mesh is not None and cfg.keep_state:
+        state = topk_sharded.gather_state(state, mesh)
     return RawBackendResult(
         exemplars=e, n_sweeps=n_sweeps,
         converged=bool(conv) if cfg.stop == "converged" else None,
@@ -142,7 +148,9 @@ def _graph_run(data, cfg: SolveConfig) -> RawBackendResult:
     first (the fused kernel on the card), a similarity stack through row
     compression of level 0 — in every case the directed top-k graph is
     canonicalized (self-loops dropped, symmetrized, deduplicated) on the
-    host, then contracted on ``cfg.device``."""
+    host, then contracted on ``cfg.device``. ``cfg.sweep`` routes the round
+    loop to one device or row-sharded over the group's ranks; the two are
+    bit-identical."""
     from repro_torch.graph import affinity
     from repro_torch.kernels.topk_similarity import topk_from_dense
 
@@ -161,7 +169,8 @@ def _graph_run(data, cfg: SolveConfig) -> RawBackendResult:
     hist, r, conv, trace = affinity.run_graph_affinity(
         torch.from_numpy(vals).to(device), torch.from_numpy(idx).to(device),
         levels=cfg.levels, max_rounds=cfg.graph_rounds,
-        target=cfg.graph_target_clusters or 1)
+        target=cfg.graph_target_clusters or 1,
+        mesh=_sweep_mesh(cfg, el.n_nodes))
     return RawBackendResult(
         exemplars=hist, n_sweeps=r, converged=bool(conv),
         trace=np.asarray(trace)[:r], state=None)

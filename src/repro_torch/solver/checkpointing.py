@@ -1,13 +1,13 @@
-"""Solver checkpoint/resume on one device: sweep segments and per-stage
-artifacts (port of ``repro/solver/checkpointing.py``).
+"""Solver checkpoint/resume: sweep segments and per-stage artifacts (port
+of ``repro/solver/checkpointing.py``).
 
 The two long-running backends take ``SolveConfig.checkpoint_every`` /
 ``checkpoint_dir`` / ``resume_from``:
 
-* **dense_topk** — the Jacobi loop runs as *segments* of
-  ``dense.drive_sweeps`` (``segmented=True``); between segments the host
-  snapshots the compressed message state and the loop counters through
-  ``repro_torch.checkpoint``. A plain solve is one segment of the same
+* **dense_topk** (one device, or row-sharded) — the Jacobi loop runs as
+  *segments* of ``dense.drive_sweeps`` (``segmented=True``); between
+  segments the host snapshots the compressed message state and the loop
+  counters through ``repro_torch.checkpoint``. A plain solve is one segment of the same
   loop with the same sweep (``topk.make_topk_sweep``), so an interrupted
   and resumed run, an uninterrupted checkpointed run and the plain run
   execute the same sweeps on the same state: resume is bit-exact by
@@ -25,9 +25,17 @@ package resumes in the other. Crash points are exercised through
 ``solver.coarsen``), fired *after* each save, so an injected crash always
 leaves a resumable directory.
 
-The reference's sharded runner (``sweep="sharded"``, with its re-padding
-of the logical state) comes with the distributed slice (``ROADMAP.md``
-queue A.7).
+Sharded sweeps (``sweep="sharded"`` in a group of ranks) checkpoint the
+*unpadded logical* state, as the reference does: at a segment boundary
+the ranks gather their row blocks, the mesh's first rank alone writes the
+directory, and every rank waits at a barrier before the fault site fires,
+so an injected crash always leaves a complete directory and no rank runs
+ahead of the write. On resume every rank reads the directory and re-pads
+its own block (``_repad_carry``): real rows from disk, dummy rows at
+their ``hap_init`` values. The dummies only reference themselves and the
+change counter masks them out, so the real rows evolve as in the
+uninterrupted run, bit for bit. Each segment runs the sweep closure of
+``topk_sharded.prepare_sharded``, the one the plain sharded run uses.
 """
 from __future__ import annotations
 
@@ -44,7 +52,9 @@ from repro_torch.checkpoint.ckpt import (
 )
 from repro_torch.core import hap
 from repro_torch.runtime import faultinject
+from repro_torch.sharding.dist import all_gather, barrier
 from repro_torch.solver import dense, topk
+from repro_torch.solver import topk_sharded as ts
 from repro_torch.solver.config import (  # noqa: F401  (re-exported)
     CHECKPOINT_BACKENDS, SolveConfig,
 )
@@ -137,42 +147,41 @@ def _is_done(it: int, stable: int, cfg: SolveConfig) -> bool:
 
 def run_topk_checkpointed(s3k: torch.Tensor, idx: torch.Tensor,
                           cfg: SolveConfig, *, mesh=None):
-    """Checkpoint-aware replacement for ``topk.run_topk``, with its return
-    contract ``(TopKState, exemplars, n_sweeps, converged, trace)``.
-
-    ``mesh`` is the reference's sharded sweep, whose checkpointed runner
-    is not ported yet: with a mesh it raises."""
+    """Checkpoint-aware replacement for ``topk.run_topk`` and
+    ``topk_sharded.run_topk_sharded``, with their return contract
+    ``(TopKState, exemplars, n_sweeps, converged, trace)`` (with a mesh:
+    exemplars in the padded N', the state this rank's row block)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "checkpointed sharded sweeps are not ported yet (ROADMAP.md "
-            "queue A.7); pass sweep='single' to checkpoint in a group")
+        return _run_sharded_checkpointed(s3k, idx, mesh, cfg)
     return _run_single_checkpointed(s3k, idx, cfg)
 
 
-def _open_run(cfg: SolveConfig, meta: dict):
-    """Validate/initialize the checkpoint directories; returns
-    ``(manager_or_None, restored_tree_or_None)``."""
-    restored = None
-    if cfg.resume_from:
-        check_meta(cfg.resume_from, meta)
-        mgr_in = CheckpointManager(cfg.resume_from, keep=2,
-                                   async_save=False)
-        hit = mgr_in.restore_latest(_carry_like())
-        if hit is None:
-            raise ValueError(
-                f"resume_from={cfg.resume_from!r} holds no step_* "
-                "checkpoints to resume")
-        restored = hit[1]
-    mgr = None
-    if cfg.checkpoint_every > 0:
-        if not cfg.resume_from or \
-                os.path.abspath(cfg.resume_from) != \
-                os.path.abspath(cfg.checkpoint_dir):
-            reset_dir(cfg.checkpoint_dir)
-        write_meta(cfg.checkpoint_dir, meta)
-        mgr = CheckpointManager(cfg.checkpoint_dir, keep=2,
-                                async_save=False)
-    return mgr, restored
+def _restore(cfg: SolveConfig, meta: dict):
+    """The newest carry tree of ``cfg.resume_from`` (None without one),
+    after checking its meta."""
+    if not cfg.resume_from:
+        return None
+    check_meta(cfg.resume_from, meta)
+    hit = CheckpointManager(cfg.resume_from, keep=2,
+                            async_save=False).restore_latest(_carry_like())
+    if hit is None:
+        raise ValueError(
+            f"resume_from={cfg.resume_from!r} holds no step_* "
+            "checkpoints to resume")
+    return hit[1]
+
+
+def _open_writer(cfg: SolveConfig, meta: dict):
+    """Initialize the checkpoint directory (clear another run's artifacts,
+    write the meta) and return its manager; None without checkpointing."""
+    if cfg.checkpoint_every <= 0:
+        return None
+    if not cfg.resume_from or \
+            os.path.abspath(cfg.resume_from) != \
+            os.path.abspath(cfg.checkpoint_dir):
+        reset_dir(cfg.checkpoint_dir)
+    write_meta(cfg.checkpoint_dir, meta)
+    return CheckpointManager(cfg.checkpoint_dir, keep=2, async_save=False)
 
 
 def _run_single_checkpointed(s3k: torch.Tensor, idx: torch.Tensor,
@@ -180,7 +189,8 @@ def _run_single_checkpointed(s3k: torch.Tensor, idx: torch.Tensor,
     s3k = s3k.float().contiguous()
     levels, n, kk = s3k.shape
     meta = _topk_meta("dense_topk_single", n, kk, cfg, 1, None)
-    mgr, restored = _open_run(cfg, meta)
+    restored = _restore(cfg, meta)
+    mgr = _open_writer(cfg, meta)
     every, mi = cfg.checkpoint_every, cfg.max_iterations
 
     sweep, assign = topk.make_topk_sweep(
@@ -201,6 +211,75 @@ def _run_single_checkpointed(s3k: torch.Tensor, idx: torch.Tensor,
             mgr.save(it, _carry_tree(state, e, stable, it, trace))
         faultinject.fire("solver.sweep", sweep=it, kind="single")
     return TopKState(state, idx), e, it, stable >= cfg.patience, trace
+
+
+# --------------------------------------------------------- sharded segments
+def _run_sharded_checkpointed(s3k: torch.Tensor, idx: torch.Tensor, mesh,
+                              cfg: SolveConfig):
+    levels, n, kk = s3k.shape
+    run = ts.prepare_sharded(s3k, idx, mesh, exchange=cfg.exchange,
+                             damping=cfg.damping, kappa=cfg.kappa,
+                             s_mode=cfg.s_mode)
+    ax, n_real = run.ax, run.n_real
+    meta = _topk_meta("dense_topk_sharded", n, kk, cfg, ax.size,
+                      run.exchange)
+    # every rank reads the resumed directory before the writer may
+    # rewrite its meta (when resuming into the same directory)
+    restored = _restore(cfg, meta)
+    barrier(ax)
+    mgr = _open_writer(cfg, meta) if ax.index == 0 else None
+    every, mi = cfg.checkpoint_every, cfg.max_iterations
+
+    if restored is not None:
+        carry = _repad_carry(restored, run)
+    else:
+        carry = dense.initial_carry(hap.hap_init(run.s_loc), levels,
+                                    run.idx_loc.shape[0], mi)
+    state, e, stable, it, trace = carry
+    while not _is_done(it, stable, cfg):
+        until = mi if every <= 0 else min(it + every, mi)
+        carry = run.drive(max_iterations=mi, stop=cfg.stop,
+                          patience=cfg.patience, segmented=True,
+                          carry=carry, until=until)
+        state, e, stable, it, trace = carry
+        if every > 0:
+            # the unpadded logical rows of every rank; the first rank
+            # writes them while the others wait at the barrier
+            logical = hap.HAPState(*(all_gather(t, ax, axis=1)[:, :n_real]
+                                     for t in state))
+            e_all = all_gather(e, ax, axis=1)[:, :n_real]
+            if mgr is not None:
+                mgr.save(it, _carry_tree(logical, e_all, stable, it, trace))
+            del logical, e_all
+            barrier(ax)
+        faultinject.fire("solver.sweep", sweep=it, kind="sharded")
+    return (TopKState(state, run.idx_loc), all_gather(e, ax, axis=1), it,
+            stable >= cfg.patience, trace)
+
+
+def _repad_carry(restored: dict, run: ts.ShardedSweep):
+    """This rank's block of the padded carry, rebuilt from a logical
+    checkpoint: real rows from disk, dummy rows at their ``hap_init``
+    values (s from the padded stack, r = a = phi = c = 0, tau = +inf) and
+    exemplars pointing at themselves. Dummies are inert by construction
+    (self-referencing edges, a masked change counter), so the real rows
+    evolve as in the uninterrupted run."""
+    state, e_saved, stable, it, trace = carry_from_tree(restored,
+                                                        run.s_loc.device)
+    levels, b, _ = run.s_loc.shape
+    lo = run.row0
+    m = max(0, min(b, run.n_real - lo))          # this block's real rows
+
+    def block(fresh, saved):
+        out = fresh.clone()
+        out[:, :m] = saved[:, lo:lo + m]
+        return out
+
+    own = torch.arange(lo, lo + b, dtype=torch.int32,
+                       device=run.s_loc.device).expand(levels, b)
+    init = hap.hap_init(run.s_loc)
+    return (hap.HAPState(*(block(f, t) for f, t in zip(init, state))),
+            block(own, e_saved), stable, it, trace)
 
 
 # ------------------------------------------------------------ coarsen stage

@@ -112,15 +112,26 @@ def validate_config(cfg: SolveConfig, n: int) -> None:
 
 
 # ------------------------------------------------------------------ input
-def _resolve_device(cfg: SolveConfig) -> torch.device:
-    """``cfg.device`` as a torch device; None means CUDA, and a missing
-    CUDA raises instead of falling back to the CPU."""
-    device = torch.device(cfg.device or "cuda")
+def resolve_device(device=None) -> torch.device:
+    """``device`` (``SolveConfig.device``, or the ``device`` argument of a
+    function that takes numpy arrays) as a torch device; None means CUDA,
+    and a missing CUDA raises instead of falling back to the CPU."""
+    device = torch.device(device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
     return device
+
+
+def as_points(x, device=None) -> torch.Tensor:
+    """``x`` as float32 points for the analysis functions that take numpy
+    or tensors (baselines, curation): a tensor stays on its device, numpy
+    input goes to ``resolve_device(device)``."""
+    if isinstance(x, torch.Tensor):
+        return x.float()
+    return torch.from_numpy(np.asarray(x, np.float32)).to(
+        resolve_device(device))
 
 
 def _normalize_input(data, cfg: SolveConfig, device: torch.device):
@@ -210,7 +221,7 @@ def solve(data, config: Optional[SolveConfig] = None,
     cfg = config or SolveConfig()
     if overrides:
         cfg = cfg.replace(**overrides)
-    device = _resolve_device(cfg)
+    device = resolve_device(cfg.device)
     cfg = cfg.replace(device=str(device))
     # a launch that torchrun's environment describes joins its group
     # before routing counts the ranks; in one process a no-op

@@ -40,6 +40,8 @@ themselves.
 """
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 
 from repro_torch.core import hap
@@ -179,6 +181,67 @@ def make_sharded_sweep(idx_loc: torch.Tensor, ax: Axis, n_total: int,
     return sweep, assign
 
 
+class ShardedSweep(NamedTuple):
+    """One rank's part of a row-sharded sparse loop: its row blocks of the
+    padded stack and index map, the ``(sweep, assign)`` pair of
+    ``make_sharded_sweep``, the change counter's mask of real rows, and
+    the mesh axis the exchanges run over."""
+    ax: Axis
+    s_loc: torch.Tensor            # (L, B, kk) this rank's rows
+    idx_loc: torch.Tensor          # (B, kk) their global destination ids
+    n_real: int                    # rows before padding
+    exchange: str                  # the resolved column exchange
+    sweep: Callable
+    assign: Callable
+    count_mask: torch.Tensor       # (B,) bool: real rows
+
+    @property
+    def row0(self) -> int:
+        """Global id of this rank's first row."""
+        return self.ax.index * self.idx_loc.shape[0]
+
+    def drive(self, *, max_iterations: int, stop: str, patience: int,
+              segmented: bool = False, carry=None, until=None):
+        """``dense.drive_sweeps`` on this rank's block: the whole run, or
+        (``segmented``) one checkpoint segment from ``carry`` to
+        ``until``. Every call runs the same sweep closure, so a plain, a
+        checkpointed and a resumed run are the same op sequence."""
+        init = hap.hap_init(self.s_loc) if carry is None else None
+        return dense.drive_sweeps(
+            init, self.sweep, self.assign,
+            self.s_loc.shape[0], self.idx_loc.shape[0],
+            max_iterations=max_iterations, stop=stop, patience=patience,
+            count_mask=self.count_mask, axis=self.ax, segmented=segmented,
+            carry=carry, until=until)
+
+
+def prepare_sharded(s3k: torch.Tensor, idx: torch.Tensor, mesh, *,
+                    exchange: str = "auto", damping: float = 0.5,
+                    kappa: float = 0.0, s_mode: str = "off",
+                    axis_name: str = AXIS) -> ShardedSweep:
+    """Pad the (L, N, kk) stack to the rank count, take this rank's row
+    blocks and build its sweep: the set-up that ``run_topk_sharded`` and
+    the checkpointed runner (``solver.checkpointing``) share."""
+    if tuple(mesh.axis_names) != (axis_name,):
+        raise ValueError(
+            f"sharded sweeps need a 1-D mesh with axis {axis_name!r} "
+            f"(got axes {tuple(mesh.axis_names)}); build one with "
+            "repro_torch.launch.mesh.make_worker_mesh()")
+    ax = mesh.axis(axis_name)
+    s3k = s3k.float()
+    kk = s3k.shape[-1]
+    s3k_p, idx_p, n_real = pad_topk(s3k, idx, ax.size)
+    n_total = s3k_p.shape[1]
+    s_loc = row_block(s3k_p, mesh, axis_name, axis=1)
+    idx_loc = row_block(idx_p, mesh, axis_name, axis=0)
+    exchange = resolve_exchange(exchange, n=n_total, kk=kk)
+    sweep, assign = make_sharded_sweep(
+        idx_loc, ax, n_total, exchange, damping=damping, kappa=kappa,
+        s_mode=s_mode)
+    return ShardedSweep(ax, s_loc, idx_loc, n_real, exchange, sweep, assign,
+                        idx_loc[:, 0] < n_real)
+
+
 def run_topk_sharded(s3k: torch.Tensor, idx: torch.Tensor, mesh, *,
                      max_iterations: int, damping: float = 0.5,
                      kappa: float = 0.0, s_mode: str = "off",
@@ -194,27 +257,13 @@ def run_topk_sharded(s3k: torch.Tensor, idx: torch.Tensor, mesh, *,
     equal the one-device oracle's, and under ``exchange="allgather"`` the
     state is bit-identical to it.
     """
-    if tuple(mesh.axis_names) != (axis_name,):
-        raise ValueError(
-            f"sharded sweeps need a 1-D mesh with axis {axis_name!r} "
-            f"(got axes {tuple(mesh.axis_names)}); build one with "
-            "repro_torch.launch.mesh.make_worker_mesh()")
-    ax = mesh.axis(axis_name)
-    s3k = s3k.float()
-    levels, _, kk = s3k.shape
-    s3k_p, idx_p, n_real = pad_topk(s3k, idx, ax.size)
-    n_total = s3k_p.shape[1]
-    s_loc = row_block(s3k_p, mesh, axis_name, axis=1)
-    idx_loc = row_block(idx_p, mesh, axis_name, axis=0)
-    sweep, assign = make_sharded_sweep(
-        idx_loc, ax, n_total, resolve_exchange(exchange, n=n_total, kk=kk),
-        damping=damping, kappa=kappa, s_mode=s_mode)
-    state, e, n_sweeps, conv, trace = dense.drive_sweeps(
-        hap.hap_init(s_loc), sweep, assign, levels, idx_loc.shape[0],
-        max_iterations=max_iterations, stop=stop, patience=patience,
-        count_mask=idx_loc[:, 0] < n_real, axis=ax)
-    return (TopKState(state, idx_loc), all_gather(e, ax, axis=1), n_sweeps,
-            conv, trace)
+    run = prepare_sharded(s3k, idx, mesh, exchange=exchange,
+                          damping=damping, kappa=kappa, s_mode=s_mode,
+                          axis_name=axis_name)
+    state, e, n_sweeps, conv, trace = run.drive(
+        max_iterations=max_iterations, stop=stop, patience=patience)
+    return (TopKState(state, run.idx_loc), all_gather(e, run.ax, axis=1),
+            n_sweeps, conv, trace)
 
 
 def gather_state(state, mesh, axis_name: str = AXIS):

@@ -450,10 +450,16 @@ def test_checkpoint_config_validation(tmp_path):
 
 
 def test_sharded_checkpointing_names_its_queue():
-    with pytest.raises(NotImplementedError, match="A.7"):
+    """With a mesh the checkpointed runner takes the sharded program (held
+    to the plain sharded run on gloo ranks in
+    ``test_torch_dist_resume.py``), which asks for a 1-D ``workers``
+    mesh."""
+    from repro_torch.launch.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="1-D mesh"):
         checkpointing.run_topk_checkpointed(
             torch.zeros(1, 2, 2), torch.zeros(2, 2, dtype=torch.int32),
-            SolveConfig(), mesh=object())
+            SolveConfig(), mesh=make_mesh((1, 1), ("rows", "cols")))
 
 
 def test_meta_matches_the_reference(tmp_path):

@@ -633,3 +633,49 @@ def test_sharded_build_launches_similarity_on_each_rank(cuda_ranks):
         assert sum(counts.values()) == counts["similarity"]
         np.testing.assert_array_equal(out["build"][0], vals.numpy())
         np.testing.assert_array_equal(out["build"][1], idx.numpy())
+
+
+# ------------------------------------------------- baselines and hooks
+def test_kmeans_on_the_card_equals_the_cpu(dev):
+    """K-means on the card from the same centers as the CPU: labels equal,
+    centers and inertia within 1e-5 relative (cuBLAS and the CPU's BLAS
+    sum the products in other orders); the seeded default init is the
+    same on both."""
+    from repro_torch.baselines import hierarchical_kmeans, kmeans
+    from repro_torch.data import aggregation_like, gaussian_blobs
+
+    x, _ = gaussian_blobs(n=5000, k=16, seed=0, spread=0.5)
+    cpu = kmeans(x, 16, iterations=25, seed=0, device="cpu")
+    card = kmeans(x, 16, iterations=25, seed=0)
+    assert card.labels.device.type == "cuda"
+    np.testing.assert_array_equal(card.labels.cpu().numpy(),
+                                  cpu.labels.numpy())
+    scale = np.abs(cpu.centers.numpy()).max()
+    assert np.abs(card.centers.cpu().numpy()
+                  - cpu.centers.numpy()).max() <= 1e-5 * scale
+    assert abs(float(card.inertia) - float(cpu.inertia)) \
+        <= 1e-5 * abs(float(cpu.inertia))
+    xa, _ = aggregation_like()
+    hk_card = hierarchical_kmeans(xa, levels=3, branch=3)
+    hk_cpu = hierarchical_kmeans(xa, levels=3, branch=3, device="cpu")
+    np.testing.assert_array_equal(hk_card.labels[-1], hk_cpu.labels[-1])
+
+
+def test_curation_and_expert_clusters_on_the_card_equal_the_cpu(dev):
+    from repro_torch.core.expert_affinity import cluster_experts
+    from repro_torch.data.pipeline import hap_curate_batch
+
+    rng = _gen(0)
+    base = rng.standard_normal((64, 256)).astype(np.float32)
+    batch = np.repeat(base, 8, axis=0) \
+        + 0.02 * rng.standard_normal((512, 256)).astype(np.float32)
+    np.testing.assert_array_equal(hap_curate_batch(batch),
+                                  hap_curate_batch(batch, device="cpu"))
+    probs = rng.random((2048, 32)).astype(np.float32) * 0.05
+    hot = rng.integers(0, 16, 2048)
+    probs[np.arange(2048), 2 * hot] += 0.5
+    probs[np.arange(2048), 2 * hot + 1] += 0.5
+    probs /= probs.sum(1, keepdims=True)
+    card, cpu = cluster_experts(probs), cluster_experts(probs, device="cpu")
+    np.testing.assert_array_equal(card.labels, cpu.labels)
+    assert (card.labels[0::2] == card.labels[1::2]).all()

@@ -268,15 +268,21 @@ def test_boruvka_equals_reference_and_oracle(graph, target, max_rounds,
 
 def test_boruvka_components_isolates_and_mesh():
     """The isolated nodes stay singletons, the components contract to
-    their smallest ids, and the sharded program's mesh names its queue."""
+    their smallest ids; a one-rank ``workers`` mesh runs the one-device
+    loop (the sharded program is held to the loop on gloo ranks in
+    ``test_torch_dist_resume.py``)."""
     el = EdgeList(np.asarray([0, 1, 2, 3], np.int32),
                   np.asarray([1, 0, 3, 2], np.int32),
                   np.ones(4, np.float32), n_nodes=5).canonical()
     res = solve(el, backend="graph_affinity", levels=1, device="cpu")
     assert res.converged
     np.testing.assert_array_equal(res.exemplars[0], [0, 0, 2, 2, 4])
-    with pytest.raises(NotImplementedError, match="A.7"):
-        affinity.run_graph_affinity(*el.to_topk(), mesh=object())
+    from repro_torch.launch.mesh import make_worker_mesh
+
+    hist, _, conv, _ = affinity.run_graph_affinity(
+        *el.to_topk(), mesh=make_worker_mesh())
+    assert conv
+    np.testing.assert_array_equal(hist[0].numpy(), [0, 0, 2, 2, 4])
 
 
 # ------------------------------------------------------ solve(EdgeList)

@@ -42,7 +42,9 @@ def test_importing_the_solver_loads_no_jax():
             "repro_torch.runtime, repro_torch.runtime.faultinject, "
             "repro_torch.solver.checkpointing, repro_torch.sharding.dist, "
             "repro_torch.core.mrhap, repro_torch.launch.cluster, "
-            "repro_torch.launch.mesh, repro_torch.solver.topk_sharded;"
+            "repro_torch.launch.mesh, repro_torch.solver.topk_sharded, "
+            "repro_torch.baselines, repro_torch.baselines.hkmeans, "
+            "repro_torch.data.pipeline, repro_torch.core.expert_affinity;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "assert not bad, bad")
@@ -54,6 +56,7 @@ def test_importing_the_solver_loads_no_jax():
 def _loaded_reference_modules():
     """In a spawned rank: import the distributed modules, run a collective,
     and list what of jax or repro the process holds."""
+    import repro_torch.baselines  # noqa: F401
     import repro_torch.core.mrhap  # noqa: F401
     import repro_torch.launch.cluster  # noqa: F401
     import repro_torch.solver.backends  # noqa: F401
