@@ -126,7 +126,9 @@ baselines the paper's comparison baselines and the two HAP hooks on the card:
           and HK-Means: purity and clusters a level on the card and the
           CPU, decisions and HK-Means' top level equal); ``hap_curate_batch``
           on 4,096 embeddings of width 1,024 (512 bases x 8 near-copies;
-          kept indices equal to the CPU's); ``cluster_experts`` at 128
+          kept indices equal to the CPU's at base scale 0.25; at 1.0,
+          ROADMAP C9, one kept copy of every base on the card and on the
+          CPU, and how many bases the two kept by another copy); ``cluster_experts`` at 128
           experts over 4,096 tokens of planted co-activated pairs (clusters
           equal to the CPU's, every pair in one cluster)
 solve_checkpoint the default ``dense_topk`` solve of the blobs under both
@@ -155,13 +157,39 @@ serve     the clustering service (``repro_torch.serve.cluster``) on the
           ``bench_serve.py``'s CHAOS_FULL (4 workers on the card, 3 kills
           at ``serve.launch``): every future resolves; and
           ``python -m repro_torch.launch.cluster_serve --smoke``
+lm_serve  the LM serving path (``repro_torch.serve``, no kernel of its
+          own): (a) tinyllama-1.1b at full width and depth (22 layers,
+          d_model 2,048; random parameters from a generator seeded 0) served
+          by ``ServeEngine.generate`` on 8 prompts of 512 tokens, 64 greedy
+          steps: prefill ms, decode ms a step, tokens/s, peak memory;
+          finite logits, a second call's tokens equal, and on 2 rows the
+          decode logits at the last position against the full forward's:
+          within 1e-4 in float32 compute, and in bfloat16 within 2e-2
+          (atol = rtol) or ``LM_DECODE_BF16_BAR``, 1.5 x the reference's
+          own gap at this depth and length on the CPU (it misses 2e-2
+          there too: ``tools/lm_decode_drift.py --seq 512``); (d)
+          ``exemplar_compress_cache`` on layer 0's cache of that prefill
+          (window 512, the median preference) on the card and the CPU:
+          kept counts and masks equal; (b) ``ContinuousBatchingEngine``,
+          8 slots, 16 requests of 32-512 prompt tokens and 16-64 steps:
+          each output equal to its isolated ``generate``; (c) the card
+          against the CPU, same parameters and inputs: the ten ``-smoke``
+          configs (forward, prefill, one decode step; MoE routing decisions
+          equal) and tinyllama cut to 2 layers (16-token prompt, 4 steps),
+          logits within 1e-4 with both in float32 compute, and as
+          configured within max(2e-2, 1.5 x the CPU's own bfloat16 error
+          against its float32 run), greedy tokens equal where the CPU's
+          top-2 margin exceeds twice that; (e) ``python -m
+          repro_torch.launch.serve --arch tinyllama-1.1b --steps 16``; the
+          five kernels' launches over the phase (0)
 profile   only with ``--profile``: ``torch.profiler`` traces of a 10-sweep
           ``dense_fused`` solve, a 10-sweep ``dense_topk`` solve and the
           two-stage build of the 200,000 blobs (neg_euclidean), device
           time by kernel and the device's idle share
 
 Then the card's name and power limit as nvidia-smi prints them, the
-kernels line ``{"kernels": [...]}``, and last ``{"ok": true, "device":
+kernels line ``{"kernels": [...]}`` (``lm_serve_launches``: each kernel's
+launches over the lm_serve phase), and last ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero with the traceback and without
 the last line; so does a machine without a CUDA device, or a directory
 without the repository's ``src/``.
@@ -169,6 +197,9 @@ without the repository's ``src/``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -2552,8 +2583,9 @@ CURATE_BASES, CURATE_COPIES, CURATE_D = 512, 8, 1_024
 # differently, ROADMAP C2) grows with |x|^2, the near-copies' spread with
 # the noise; at 0.25 the batch is as well-conditioned as
 # tests/test_pipeline.py's (within-copy spread ~500x S's rounding); at 1.0
-# the card and the CPU kept other copies in a few groups (PERF.md)
-CURATE_SCALE, CURATE_NOISE = 0.25, 0.02
+# the card and the CPU kept other copies in a few groups (PERF.md, ROADMAP
+# C9), and that batch is checked for one kept copy of every base
+CURATE_SCALE, CURATE_DRIFT_SCALE, CURATE_NOISE = 0.25, 1.0, 0.02
 # qwen3-moe-235b-a22b's router (configs/registry.py: 128 experts), over
 # 4,096 tokens
 N_EXPERTS, N_TOKENS = 128, 4_096
@@ -2670,27 +2702,45 @@ def run_baselines(blobs, truth, init_centers) -> dict:
         check(all(same.values()),
               f"Fig 5.1 {name}: card and CPU differ: {same}")
 
-    # (h) curation: 512 seeded bases x 8 near-copies, width 1,024
-    rng = np.random.default_rng(0)
-    base = CURATE_SCALE * rng.standard_normal(
-        (CURATE_BASES, CURATE_D)).astype(np.float32)
-    batch = (np.repeat(base, CURATE_COPIES, axis=0)
-             + CURATE_NOISE * rng.standard_normal(
-                 (CURATE_BASES * CURATE_COPIES, CURATE_D)).astype(np.float32))
-    hap_curate_batch(batch, device=DEVICE)
-    keep, keep_s = timed_sync(lambda: hap_curate_batch(batch, device=DEVICE))
-    t0 = time.perf_counter()
-    keep_cpu = hap_curate_batch(batch, device="cpu")
-    cpu_s = time.perf_counter() - t0
-    same = bool(np.array_equal(keep, keep_cpu))
-    groups = np.unique(keep // CURATE_COPIES)
-    emit({"phase": "baselines", "step": "hap_curate_batch",
-          "n": len(batch), "d": CURATE_D, "base_scale": CURATE_SCALE,
-          "noise": CURATE_NOISE, "kept": len(keep),
-          "groups_kept": len(groups),
-          "kept_apart_from_cpu": len(set(keep) ^ set(keep_cpu)),
-          "wall_s": keep_s, "cpu_wall_s": cpu_s, "kept_equal_cpu": same})
-    check(same, "hap_curate_batch: the card kept other indices")
+    # (h) curation: 512 seeded bases x 8 near-copies, width 1,024, at two
+    # base scales: at CURATE_SCALE the kept indices equal the CPU's; at
+    # CURATE_DRIFT_SCALE (ROADMAP C9) the card and the CPU may keep another
+    # near-copy of a base, so there each keeps exactly one copy of every base
+    for scale in (CURATE_SCALE, CURATE_DRIFT_SCALE):
+        rng = np.random.default_rng(0)
+        base = scale * rng.standard_normal(
+            (CURATE_BASES, CURATE_D)).astype(np.float32)
+        batch = (np.repeat(base, CURATE_COPIES, axis=0)
+                 + CURATE_NOISE * rng.standard_normal(
+                     (CURATE_BASES * CURATE_COPIES, CURATE_D)).astype(
+                         np.float32))
+        hap_curate_batch(batch, device=DEVICE)
+        keep, keep_s = timed_sync(lambda: hap_curate_batch(batch,
+                                                           device=DEVICE))
+        t0 = time.perf_counter()
+        keep_cpu = hap_curate_batch(batch, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        same = bool(np.array_equal(keep, keep_cpu))
+        one_each = {where: len(k) == CURATE_BASES and bool(np.array_equal(
+            k // CURATE_COPIES, np.arange(CURATE_BASES)))
+            for where, k in (("card", keep), ("cpu", keep_cpu))}
+        emit({"phase": "baselines", "step": "hap_curate_batch",
+              "n": len(batch), "d": CURATE_D, "base_scale": scale,
+              "noise": CURATE_NOISE, "kept": len(keep),
+              "kept_cpu": len(keep_cpu),
+              "groups_kept": len(np.unique(keep // CURATE_COPIES)),
+              "one_per_base": one_each,
+              "kept_apart_from_cpu": len(set(keep) ^ set(keep_cpu)),
+              "bases_kept_by_another_copy": int(
+                  (keep != keep_cpu).sum()) if len(keep) == len(keep_cpu)
+              else None,
+              "wall_s": keep_s, "cpu_wall_s": cpu_s, "kept_equal_cpu": same})
+        if scale == CURATE_SCALE:
+            check(same, "hap_curate_batch: the card kept other indices")
+        else:
+            check(all(one_each.values()),
+                  f"hap_curate_batch at base scale {scale}: not one kept "
+                  f"copy of every base on the card and the CPU: {one_each}")
 
     # (i) expert affinity at 128 experts: planted co-activated pairs
     rng = np.random.default_rng(1)
@@ -2723,6 +2773,411 @@ def dist_rank_all(pixels, blobs, init_centers) -> list:
     return dist.spawn(dist_rank, DIST_WORLD, device=DEVICE,
                       args=(pixels, blobs, DEVICE, str(GRAPH_LAYOUT),
                             init_centers))
+
+
+# ---------------------------------------------------------------- lm_serve
+LM_ARCH = "tinyllama-1.1b"   # configs/registry.py: 22 layers, d_model 2,048
+LM_BATCH, LM_PROMPT, LM_STEPS = 8, 512, 64
+LM_MAX_LEN = LM_PROMPT + LM_STEPS + 8   # launch/serve.py's headroom
+LM_SLOTS, LM_REQUESTS = 8, 16
+LM_MIN_PROMPT, LM_MIN_STEPS = 32, 16    # the requests' mixed lengths
+LM_ATOL = 2e-2          # tests/test_models_smoke.py's decode bar
+LM_REF_SHARE = 1.5      # bfloat16: within 1.5x the CPU's own error
+LM_F32_ATOL = 1e-4      # float32 compute: card vs CPU, decode vs forward
+# bfloat16 decode against the forward at 22 layers and 512 tokens: 1.5x
+# the reference's own largest gap there, 0.046875 on the CPU
+# (tools/lm_decode_drift.py --seq 512); the 2e-2 bar above was set on
+# 2-layer configs
+LM_DECODE_BF16_BAR = LM_REF_SHARE * 0.046875
+KV_WINDOW = 512
+
+
+@contextlib.contextmanager
+def float32_compute():
+    """The port's model modules at COMPUTE_DTYPE float32 for the duration:
+    the exact-arithmetic run that sizes the bfloat16 rounding a tolerance
+    allows for (tests/_torch_lm.py does the same on the CPU)."""
+    saved = [(m, m.COMPUTE_DTYPE) for name, m in list(sys.modules.items())
+             if name.startswith("repro_torch.models")
+             and hasattr(m, "COMPUTE_DTYPE")]
+    for m, _ in saved:
+        m.COMPUTE_DTYPE = torch.float32
+    try:
+        yield
+    finally:
+        for m, value in saved:
+            m.COMPUTE_DTYPE = value
+
+
+def lm_tensors(inputs: dict, dev) -> dict:
+    return {k: torch.as_tensor(v, device=dev) for k, v in inputs.items()}
+
+
+@torch.inference_mode()
+def lm_logits(model, cfg, inputs: dict, dev) -> tuple[np.ndarray, np.ndarray]:
+    """(the forward's logits (B, S, V), the logits of decoding the last
+    token after a prefill of the others (B, V)) on ``dev``, float32 numpy,
+    the padded vocab dropped."""
+    from repro_torch.models import Mode, model_apply, model_state_init
+
+    x = lm_tensors(inputs, dev)
+    full, _, _ = model_apply(model, cfg, x, Mode("train", "dense"))
+    b, s = x["tokens"].shape
+    prefix = cfg.img_tokens if cfg.family == "vlm" else 0
+    pre = dict(x, tokens=x["tokens"][:, :-1],
+               positions=torch.arange(s - 1 + prefix, device=dev)[None]
+               .expand(b, -1))
+    st = model_state_init(cfg, b, s + prefix, device=dev)
+    _, st, _ = model_apply(model, cfg, pre, Mode("prefill", "dense"), st)
+    dec = {"tokens": x["tokens"][:, -1:],
+           "positions": torch.full((b, 1), s - 1 + prefix, device=dev)}
+    last, _, _ = model_apply(model, cfg, dec, Mode("decode", "dense"), st)
+    return (full.float().cpu().numpy()[..., :cfg.vocab],
+            last[:, 0].float().cpu().numpy()[..., :cfg.vocab])
+
+
+@torch.inference_mode()
+def lm_step_logits(model, cfg, prompts, tokens, max_len) -> np.ndarray:
+    """The engine's logits before each of ``tokens`` (B, T) when it decodes
+    them after ``prompts`` (B, S): (B, T, V), float32 numpy."""
+    from repro_torch.models import model_state_init
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    dev = prompts.device
+    b, s = prompts.shape
+    states = model_state_init(cfg, b, max_len, layout="list", device=dev)
+    logits, states = make_prefill_step(cfg, s)(
+        model, {"tokens": prompts,
+                "positions": torch.arange(s, device=dev)[None].expand(b, s)},
+        states)
+    out = [logits]
+    decode = make_decode_step(cfg)
+    for i in range(tokens.shape[1] - 1):
+        logits, states = decode(
+            model, {"tokens": tokens[:, i:i + 1],
+                    "positions": torch.full((b, 1), s + i, device=dev)},
+            states)
+        out.append(logits)
+    return torch.stack(out, 1).float().cpu().numpy()[..., :cfg.vocab]
+
+
+def under_margin(logits: np.ndarray, tol: float) -> np.ndarray:
+    """Where the top-2 margin is within 2 tol: an argmax the tolerance
+    allows to flip."""
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    return top2[..., 1] - top2[..., 0] <= 2 * tol
+
+
+def moe_routing(model, cfg, inputs: dict, dev) -> list:
+    """Each MoE layer's input in a forward on ``dev`` (forward pre-hooks)."""
+    from repro_torch.models import Mode, model_apply
+    from repro_torch.models.layers.moe import MoE
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0].detach())))
+        for m in model.modules() if isinstance(m, MoE)]
+    try:
+        with torch.inference_mode():
+            model_apply(model, cfg, lm_tensors(inputs, dev),
+                        Mode("train", "dense"))
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def route(mod, x, cfg):
+    """(expert of each choice, kept) of one MoE layer on ``x``, on x's
+    device."""
+    from repro_torch.models.layers.moe import _route_and_dispatch, capacity
+
+    e = mod.router.shape[-1]
+    t = x.shape[0] * x.shape[1]
+    cap = capacity(t, cfg.top_k, e, cfg.capacity_factor)
+    with torch.inference_mode():
+        _, (inv, _, _, flat_e) = _route_and_dispatch(
+            x.reshape(t, -1), mod.router, cfg.top_k, 0, e, cap)
+    return flat_e.cpu().numpy(), (inv != e * cap).cpu().numpy()
+
+
+def lm_smoke_on_card_and_cpu(name: str) -> dict:
+    """(c) one ``-smoke`` architecture: the same parameters and inputs on
+    the card and on the CPU; in float32 compute the logits within
+    LM_F32_ATOL of each other (what the card could get wrong: TF32, a lost
+    cast), and as configured within max(LM_ATOL, LM_REF_SHARE x the CPU's
+    own bfloat16 error against its float32 run)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model_init
+
+    cfg = get_arch(name + "-smoke")
+    model, _ = model_init(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    card = copy.deepcopy(model).to(DEVICE)
+    rng = np.random.default_rng(0)
+    inputs = {"tokens": rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32)}
+    if cfg.family == "audio":
+        inputs["frames"] = (0.02 * rng.standard_normal(
+            (2, cfg.enc_seq, cfg.d_model))).astype(np.float32)
+    if cfg.family == "vlm":
+        inputs["img_embeds"] = (0.02 * rng.standard_normal(
+            (2, cfg.img_tokens, cfg.d_model))).astype(np.float32)
+    full, last = lm_logits(card, cfg, inputs, DEVICE)
+    full_cpu, last_cpu = lm_logits(model, cfg, inputs, "cpu")
+    with float32_compute():
+        card32, card_last32 = lm_logits(card, cfg, inputs, DEVICE)
+        full32, last32 = lm_logits(model, cfg, inputs, "cpu")
+    tol = max(LM_ATOL, LM_REF_SHARE * float(np.abs(full_cpu - full32).max()))
+    err = float(np.abs(full - full_cpu).max())
+    err_dec = float(np.abs(last - last_cpu).max())
+    err32 = float(max(np.abs(card32 - full32).max(),
+                      np.abs(card_last32 - last32).max()))
+    clear = ~under_margin(full_cpu, tol)
+    flips = int(((full.argmax(-1) != full_cpu.argmax(-1)) & clear).sum())
+    row = {"arch": cfg.name, "tol": tol,
+           "cpu_bf16_err": float(np.abs(full_cpu - full32).max()),
+           "median_abs_logit": float(np.median(np.abs(full_cpu))),
+           "forward_err": err, "decode_err": err_dec,
+           "f32_err": err32, "f32_tol": LM_F32_ATOL,
+           "finite": bool(np.isfinite(full).all() and np.isfinite(last).all()),
+           "positions": int(clear.size),
+           "under_margin": int((~clear).sum()), "clear_argmax_flips": flips}
+    if cfg.n_experts:
+        same_in = own = 0
+        layers = list(zip(moe_routing(card, cfg, inputs, DEVICE),
+                          moe_routing(model, cfg, inputs, "cpu")))
+        for (mod_card, x_card), (mod_cpu, x_cpu) in layers:
+            on_card = route(mod_card, x_card, cfg)
+            same_in += not all(np.array_equal(a, b) for a, b in zip(
+                on_card, route(mod_cpu, x_card.cpu(), cfg)))
+            own += not all(np.array_equal(a, b) for a, b in zip(
+                on_card, route(mod_cpu, x_cpu, cfg)))
+        row.update({"moe_layers": len(layers),
+                    "routing_differs_same_input": same_in,
+                    "routing_differs_own_inputs": own})
+        check(same_in == 0 and own == 0,
+              f"lm_serve {cfg.name}: routing differs on the card: {row}")
+    check(row["finite"] and err32 <= LM_F32_ATOL and err <= tol
+          and err_dec <= tol and flips == 0,
+          f"lm_serve {cfg.name}: the card is off the CPU: {row}")
+    return row
+
+
+def run_lm_serve(smi: str) -> dict:
+    """(a) tinyllama-1.1b at full width and depth served on the card, (b)
+    continuous batching at that width, (c) the card against the CPU on the
+    ten reduced architectures and on tinyllama cut to 2 layers, (d) the
+    exemplar KV cache on a layer of (a)'s cache, (e) the serving driver.
+    Returns the five kernels' launches over the phase (all 0: the models
+    call none)."""
+    from repro_torch.configs import arch_names, get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Mode, model_apply, model_init
+    from repro_torch.models import model_state_init
+    from repro_torch.serve import (
+        ContinuousBatchingEngine, ServeEngine, make_prefill_step,
+    )
+    from repro_torch.serve.kvcache import exemplar_compress_cache
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    # (a) full width, full depth
+    cfg = get_arch(LM_ARCH)
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    t0 = time.perf_counter()
+    model, _ = model_init(gen, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=DEVICE, dtype=torch.int32)
+    engine = ServeEngine(cfg, model, max_len=LM_MAX_LEN)
+    engine.generate(prompts[:, :32], steps=2)                 # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    out, gen_s = timed_sync(lambda: engine.generate(prompts, steps=LM_STEPS))
+    peak = torch.cuda.max_memory_allocated()
+    again = engine.generate(prompts, steps=LM_STEPS)
+    states = model_state_init(cfg, LM_BATCH, LM_MAX_LEN, layout="list",
+                              device=DEVICE)
+    prefill = make_prefill_step(cfg, LM_PROMPT)
+    pos = torch.arange(LM_PROMPT, device=DEVICE)[None].expand(LM_BATCH, -1)
+    with torch.inference_mode():
+        (logits, states), pre_s = timed_sync(lambda: prefill(
+            model, {"tokens": prompts, "positions": pos}, states))
+    decode_ms = (gen_s - pre_s) / LM_STEPS * 1e3
+    # decode at the last position against the full forward, on 2 rows, in
+    # float32 and in bfloat16 (where the reference itself misses its 2e-2
+    # bar at this depth: LM_DECODE_BF16_BAR)
+    def decode_and_forward():
+        with torch.inference_mode():
+            x2 = prompts[:2]
+            full, _, _ = model_apply(model, cfg, {"tokens": x2},
+                                     Mode("train", "dense"))
+            st = model_state_init(cfg, 2, LM_PROMPT, device=DEVICE)
+            _, st, _ = model_apply(model, cfg, {"tokens": x2[:, :-1],
+                                                "positions": pos[:2, :-1]},
+                                   Mode("prefill", "dense"), st)
+            dec, _, _ = model_apply(model, cfg, {
+                "tokens": x2[:, -1:],
+                "positions": torch.full((2, 1), LM_PROMPT - 1,
+                                        device=DEVICE)},
+                Mode("decode", "dense"), st)
+        return dec[:, 0].float(), full[:, -1].float()
+
+    got, want = decode_and_forward()
+    with float32_compute():
+        got32, want32 = decode_and_forward()
+    dec_err = float((got - want).abs().max())
+    dec_err32 = float((got32 - want32).abs().max())
+    fwd_bf16_err = float((want - want32).abs().max())
+    dec_ok = bool(torch.allclose(got32, want32, atol=LM_F32_ATOL, rtol=0)
+                  and (torch.allclose(got, want, atol=LM_ATOL, rtol=LM_ATOL)
+                       or dec_err <= LM_DECODE_BF16_BAR))
+    row = {"phase": "lm_serve", "step": "full width", "arch": LM_ARCH,
+           "card": smi, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": n_params, "init_s": init_s, "batch": LM_BATCH,
+           "prompt": LM_PROMPT, "steps": LM_STEPS,
+           "prefill_ms": pre_s * 1e3,
+           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / pre_s,
+           "generate_s": gen_s, "decode_ms_per_step": decode_ms,
+           "tokens_per_s": LM_BATCH * LM_STEPS / gen_s,
+           "decode_tokens_per_s": LM_BATCH * 1e3 / decode_ms,
+           "peak_mem_gb": peak / 1e9,
+           "peak_over_params_gb": (peak - base_mem) / 1e9,
+           "logits_finite": bool(torch.isfinite(logits).all()),
+           "second_call_equal": bool(torch.equal(out, again)),
+           "decode_vs_forward_max_err": dec_err,
+           "decode_vs_forward_max_err_f32": dec_err32,
+           "forward_bf16_vs_f32_max_err": fwd_bf16_err,
+           "decode_bf16_bar": LM_DECODE_BF16_BAR,
+           "decode_vs_forward_ok": dec_ok}
+    emit(row)
+    check(row["logits_finite"] and row["second_call_equal"] and dec_ok,
+          f"lm_serve full width: {row}")
+
+    # (d) the exemplar KV cache on layer 0's cache of the prefill above
+    cache = states["units"]["0_attn"][0]
+    k0 = cache.k[0, :KV_WINDOW].float().reshape(KV_WINDOW, -1).cpu()
+    s0 = -torch.cdist(k0, k0).square()
+    pref = float(s0[~torch.eye(KV_WINDOW, dtype=torch.bool)].median())
+    exemplar_compress_cache(cache, window=KV_WINDOW, preference=pref)
+    (kv, stats), kv_s = timed_sync(lambda: exemplar_compress_cache(
+        cache, window=KV_WINDOW, preference=pref))
+    cpu_cache = type(cache)(*(t.cpu() for t in cache))
+    t0 = time.perf_counter()
+    kv_cpu, stats_cpu = exemplar_compress_cache(cpu_cache, window=KV_WINDOW,
+                                                preference=pref)
+    kv_cpu_s = time.perf_counter() - t0
+    keep = kv.pos[:, :KV_WINDOW].cpu() >= 0
+    keep_cpu = kv_cpu.pos[:, :KV_WINDOW] >= 0
+    apart = (keep != keep_cpu).sum(1)
+    row = {"phase": "lm_serve", "step": "exemplar kv cache",
+           "layer": "units.0_attn.0", "rows": LM_BATCH, "window": KV_WINDOW,
+           "kv_heads": cfg.n_kv, "head_dim": cfg.resolved_head_dim,
+           "preference": pref, "kept": stats.kept.tolist(),
+           "kept_cpu": stats_cpu.kept.tolist(),
+           "slots_apart_by_row": apart.tolist(),
+           "masks_equal": bool(torch.equal(keep, keep_cpu)),
+           "wall_s": kv_s, "cpu_wall_s": kv_cpu_s}
+    emit(row)
+    check(row["masks_equal"] and row["kept"] == row["kept_cpu"],
+          f"lm_serve exemplar cache: card and CPU keep apart: {row}")
+    del states, cache, kv, logits
+
+    # (b) continuous batching at the same width
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(LM_MIN_PROMPT, LM_PROMPT + 1, LM_REQUESTS)
+    budgets = rng.integers(LM_MIN_STEPS, LM_STEPS + 1, LM_REQUESTS)
+    reqs = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lengths]
+    cb = ContinuousBatchingEngine(cfg, model, slots=LM_SLOTS,
+                                  max_len=LM_MAX_LEN)
+    rids = [cb.submit(r, max_new=int(m)) for r, m in zip(reqs, budgets)]
+    steps = 0
+    t0 = time.perf_counter()
+    while cb.queue or any(s.request_id is not None for s in cb.slots):
+        cb.step()
+        steps += 1
+    torch.cuda.synchronize()
+    cb_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    isolated = [engine.generate(r[None], steps=int(m)).cpu().numpy()[0]
+                for r, m in zip(reqs, budgets)]
+    iso_s = time.perf_counter() - t0
+    equal = [bool(np.array_equal(cb.finished[rid], want))
+             for rid, want in zip(rids, isolated)]
+    first_apart = [int(np.flatnonzero(cb.finished[rid] != want)[0])
+                   if not ok else None
+                   for rid, want, ok in zip(rids, isolated, equal)]
+    row = {"phase": "lm_serve", "step": "continuous batching",
+           "slots": LM_SLOTS, "requests": LM_REQUESTS,
+           "prompt_lengths": lengths.tolist(), "budgets": budgets.tolist(),
+           "decode_steps": steps, "wall_s": cb_s,
+           "tokens_per_s": int(budgets.sum()) / cb_s,
+           "isolated_wall_s": iso_s, "equal_isolated": sum(equal),
+           "first_step_apart": first_apart}
+    emit(row)
+    check(all(equal), f"lm_serve continuous batching: {row}")
+    del cb, engine, model
+    torch.cuda.empty_cache()
+
+    # (c) the card against the CPU: the ten reduced architectures
+    rows = [lm_smoke_on_card_and_cpu(name) for name in arch_names()]
+    emit({"phase": "lm_serve", "step": "card vs cpu, -smoke",
+          "archs": rows})
+    # ... and tinyllama at full width cut to 2 layers
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    model2, _ = model_init(torch.Generator(DEVICE).manual_seed(0), cfg2,
+                           device=DEVICE)
+    cpu2 = copy.deepcopy(model2).cpu()
+    p2 = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 16)).astype(
+        np.int32))
+    tok = ServeEngine(cfg2, model2, max_len=32).generate(
+        p2.to(DEVICE), steps=4).cpu()
+    tok_cpu = ServeEngine(cfg2, cpu2, max_len=32).generate(p2, steps=4)
+    lg = lm_step_logits(model2, cfg2, p2.to(DEVICE), tok_cpu.to(DEVICE), 32)
+    lg_cpu = lm_step_logits(cpu2, cfg2, p2, tok_cpu, 32)
+    with float32_compute():
+        lg_card32 = lm_step_logits(model2, cfg2, p2.to(DEVICE),
+                                   tok_cpu.to(DEVICE), 32)
+        lg32 = lm_step_logits(cpu2, cfg2, p2, tok_cpu, 32)
+    tol = max(LM_ATOL, LM_REF_SHARE * float(np.abs(lg_cpu - lg32).max()))
+    under = under_margin(lg_cpu, tol)[0]
+    stop = int(np.flatnonzero(under)[0]) if under.any() else 4
+    row = {"phase": "lm_serve", "step": "card vs cpu, 2 layers full width",
+           "arch": cfg2.name, "prompt": 16, "steps": 4, "tol": tol,
+           "cpu_bf16_err": float(np.abs(lg_cpu - lg32).max()),
+           "median_abs_logit": float(np.median(np.abs(lg_cpu))),
+           "logits_err": float(np.abs(lg - lg_cpu).max()),
+           "f32_err": float(np.abs(lg_card32 - lg32).max()),
+           "f32_tol": LM_F32_ATOL,
+           "tokens": tok.tolist(), "tokens_cpu": tok_cpu.tolist(),
+           "tokens_equal": bool(torch.equal(tok, tok_cpu)),
+           "steps_under_margin": int(under.sum()),
+           "steps_compared": stop}
+    emit(row)
+    check(row["f32_err"] <= LM_F32_ATOL and row["logits_err"] <= tol
+          and torch.equal(tok[:, :stop], tok_cpu[:, :stop]),
+          f"lm_serve 2-layer tinyllama: the card is off the CPU: {row}")
+    del model2, cpu2
+
+    # (e) the driver, as a process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", LM_ARCH,
+         "--steps", "16"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    emit({"phase": "lm_serve", "step": "driver", "rc": proc.returncode,
+          "seconds": time.perf_counter() - t0,
+          "stdout": proc.stdout.strip().splitlines()[-2:],
+          "stderr": proc.stderr.strip().splitlines()[-3:]})
+    check(proc.returncode == 0, "launch.serve failed")
+    launches = launch_counts()
+    emit({"phase": "lm_serve", "step": "done", "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    check(not any(launches.values()),
+          f"lm_serve: a hand-written kernel ran on the LM path: {launches}")
+    return launches
 
 
 def main() -> int:
@@ -2785,6 +3240,7 @@ def main() -> int:
     paths.update(run_baselines(blobs, truth, init_centers))
     paths.update(run_solve_checkpoint(blobs, coarsen_res))
     paths.update(run_serve(smi))
+    lm_launches = run_lm_serve(smi)
     emit({"phase": "launches", "topk_build_by_path": paths})
     check(all(paths.values()), f"a path launched no topk_build: {paths}")
     if args.profile:
@@ -2800,7 +3256,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{fn_line}",
-            "launches": launches[name], **summary[name]})
+            "launches": launches[name], **summary[name],
+            "lm_serve_launches": lm_launches[name]})
         if name == "topk_build":
             kernels[-1]["launches_by_path"] = paths
         if name == "similarity":

@@ -13,6 +13,12 @@ jax's key-path strings, ``step_{:010d}`` directories, the
 ``coarsen`` run of either package resumes in the other
 (``SolveConfig.resume_from``). ``carry_from_checkpoint`` reads the newest
 sweep checkpoint of such a directory as the port's loop carry.
+
+The LM scaffolding's parameters cross the same way: the reference's
+parameter tree (``np.asarray`` of each leaf, nested dicts) loads into the
+port's model, whose parameter names follow the tree's key paths; a stacked
+unit's leading axis is unstacked into its ``ModuleList``. Decode states
+(``KVCache`` and the recurrent states, in either layout) cross likewise.
 """
 from __future__ import annotations
 
@@ -21,9 +27,18 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from torch import nn
+
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.hap import HAPState
+from repro_torch.models import model_init
+from repro_torch.models.encdec import EncDecState
+from repro_torch.models.layers.attention import KVCache
+from repro_torch.models.layers.common import tree_map
+from repro_torch.models.layers.rglru import RGLRUState
+from repro_torch.models.layers.xlstm import MLSTMState, SLSTMState
 from repro_torch.solver import checkpointing
+from repro_torch.solver.engine import resolve_device
 from repro_torch.solver.topk import TopKState
 
 
@@ -68,3 +83,93 @@ def carry_from_checkpoint(directory: str, device="cpu"):
     if hit is None:
         raise ValueError(f"{directory!r} holds no step_* checkpoints")
     return checkpointing.carry_from_tree(hit[1], device)
+
+
+# ------------------------------------------------------------ LM models
+def lm_params_from_numpy(tree: dict, cfg, device=None) -> nn.Module:
+    """The reference's parameter tree for ``cfg`` (nested dicts of numpy
+    arrays, stacked units with their leading unit axis) -> the port's model
+    (``repro_torch.models.model_init``'s module) on ``device`` (None: the
+    card; raises without one) holding those values, dtypes kept. Raises on
+    a missing or extra key, or a shape or dtype that differs."""
+    device = resolve_device(device)
+    model, _ = model_init(None, cfg, device="meta")
+    model = model.to_empty(device=device)
+    with torch.no_grad():
+        _load(model, tree, "")
+    return model
+
+
+def lm_params_to_numpy(model: nn.Module) -> dict:
+    """The port's model -> the reference's parameter tree (nested dicts of
+    numpy arrays, each ``ModuleList`` stacked on a leading unit axis)."""
+    if isinstance(model, nn.ModuleList):
+        layers = [lm_params_to_numpy(m) for m in model]
+        return tree_map(lambda *xs: np.stack(xs), *layers)
+    out = {name: p.detach().cpu().numpy()
+           for name, p in model.named_parameters(recurse=False)}
+    for name, child in model.named_children():
+        out[name] = lm_params_to_numpy(child)
+    return out
+
+
+def _load(module: nn.Module, tree, path: str) -> None:
+    if isinstance(module, nn.ModuleList):
+        for i, layer in enumerate(module):
+            _load(layer, tree_map(lambda a: a[i], tree), f"{path}{i}.")
+        return
+    params = dict(module.named_parameters(recurse=False))
+    children = dict(module.named_children())
+    if set(tree) != set(params) | set(children):
+        raise ValueError(f"{path or 'the root'}: the tree has keys "
+                         f"{sorted(tree)}, the model "
+                         f"{sorted(set(params) | set(children))}")
+    for name, p in params.items():
+        src = _tensor(tree[name])
+        if src.shape != p.shape or src.dtype != p.dtype:
+            raise ValueError(f"{path}{name}: {tuple(src.shape)} {src.dtype}"
+                             f" where the model has {tuple(p.shape)} "
+                             f"{p.dtype}")
+        p.copy_(src)
+    for name, child in children.items():
+        _load(child, tree[name], f"{path}{name}.")
+
+
+_STATE_TYPES = {t.__name__: t for t in (KVCache, RGLRUState, MLSTMState,
+                                         SLSTMState, EncDecState)}
+
+
+def lm_state_from_numpy(tree, device=None):
+    """A reference decode state (``model_state_init``'s or a prefill's
+    output, ``np.asarray`` of each leaf: dicts, lists and its named tuples)
+    -> the port's state on ``device`` (None: the card; raises without one),
+    each named tuple as the port's type of the same name, dtypes kept
+    (bfloat16 included)."""
+    device = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [conv(v) for v in node]
+        if isinstance(node, tuple):
+            return _STATE_TYPES[type(node).__name__](*(conv(v) for v in node))
+        return _tensor(node).to(device)
+
+    return conv(tree)
+
+
+def lm_state_to_numpy(state):
+    """The port's decode state -> the same tree with numpy leaves (bfloat16
+    leaves widened to float32, exactly: numpy has no bfloat16)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree_map(leaf, state)
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())

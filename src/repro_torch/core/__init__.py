@@ -31,6 +31,7 @@ from repro_torch.core.mrhap import (
 from repro_torch.core.preferences import make_preferences
 from repro_torch.core.similarity import (
     pairwise_similarity,
+    pairwise_similarity_blockwise,
     set_preferences,
     stack_levels,
 )
@@ -56,5 +57,6 @@ __all__ = [
     "nmi", "purity", "MRHAPResult", "comm_bytes_per_iteration",
     "pad_similarity", "run_mrhap", "run_mrhap_2d", "make_preferences",
     "converged_ap", "streaming_hap", "pairwise_similarity",
-    "set_preferences", "stack_levels", "solve", "SolveConfig", "SolveResult",
+    "pairwise_similarity_blockwise", "set_preferences", "stack_levels",
+    "solve", "SolveConfig", "SolveResult",
 ]

@@ -49,6 +49,21 @@ def pairwise_similarity(x: torch.Tensor,
     return _METRICS[metric](x, x)
 
 
+def pairwise_similarity_blockwise(x: torch.Tensor,
+                                  metric: Metric = "neg_sqeuclidean",
+                                  block: int = 512) -> torch.Tensor:
+    """The (N, N) similarity matrix built a row tile of ``block`` at a time,
+    so each tile's temporaries take O(block * N): the paper's view of the
+    similarity build as a map over row shards. The rows are zero-padded to
+    a multiple of ``block`` and the padded rows dropped, as the
+    reference's ``lax.map`` over tiles does."""
+    n = x.shape[0]
+    pad = (-n) % block
+    xp = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    fn = _METRICS[metric]
+    return torch.cat([fn(rows, x) for rows in xp.split(block)])[:n]
+
+
 def set_preferences(s: torch.Tensor, pref) -> torch.Tensor:
     """A copy of ``s`` with the diagonal (preference) entries set to ``pref``
     (a scalar or an (N,) vector)."""

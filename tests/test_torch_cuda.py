@@ -679,3 +679,124 @@ def test_curation_and_expert_clusters_on_the_card_equal_the_cpu(dev):
     card, cpu = cluster_experts(probs), cluster_experts(probs, device="cpu")
     np.testing.assert_array_equal(card.labels, cpu.labels)
     assert (card.labels[0::2] == card.labels[1::2]).all()
+
+
+# ---------------------------------------------------- the LM serving path
+class _Float32Compute:
+    """The port's model modules at COMPUTE_DTYPE float32 while entered: the
+    exact-arithmetic run that sizes the bfloat16 rounding."""
+
+    def __enter__(self):
+        import sys
+        self.saved = [(m, m.COMPUTE_DTYPE) for name, m in
+                      list(sys.modules.items())
+                      if name.startswith("repro_torch.models")
+                      and hasattr(m, "COMPUTE_DTYPE")]
+        for m, _ in self.saved:
+            m.COMPUTE_DTYPE = torch.float32
+
+    def __exit__(self, *exc):
+        for m, value in self.saved:
+            m.COMPUTE_DTYPE = value
+
+
+def _lm_inputs(cfg, b=2, s=24, seed=0):
+    rng = _gen(seed)
+    out = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, s)).astype(np.int32))}
+    if cfg.family == "vlm":
+        out["img_embeds"] = torch.from_numpy((0.02 * rng.standard_normal(
+            (b, cfg.img_tokens, cfg.d_model))).astype(np.float32))
+    return out
+
+
+def _lm_forward(model, cfg, inputs, dev):
+    from repro_torch.models import Mode, model_apply
+    with torch.inference_mode():
+        logits, _, _ = model_apply(
+            model, cfg, {k: v.to(dev) for k, v in inputs.items()},
+            Mode("train", "dense"))
+    return logits.float().cpu().numpy()[..., :cfg.vocab]
+
+
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "recurrentgemma-9b",
+                                  "mixtral-8x22b"])
+def test_lm_decode_matches_the_full_forward_on_the_card(dev, name):
+    """tests/test_models_smoke.py's property on the card (MoE at capacity
+    factor 8, so that nothing is dropped)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Mode, model_apply, model_init
+    from repro_torch.models import model_state_init
+
+    cfg = get_arch(name + "-smoke")
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    model, _ = model_init(None, cfg)
+    toks = _lm_inputs(cfg)["tokens"].to(dev)
+    with torch.inference_mode():
+        full, _, _ = model_apply(model, cfg, {"tokens": toks},
+                                 Mode("train", "dense"))
+        st = model_state_init(cfg, 2, 24)
+        pos = torch.arange(23, device=dev)[None].expand(2, -1)
+        _, st, _ = model_apply(model, cfg, {"tokens": toks[:, :-1],
+                                            "positions": pos},
+                               Mode("prefill", "dense"), st)
+        dec, _, _ = model_apply(model, cfg, {
+            "tokens": toks[:, -1:],
+            "positions": torch.full((2, 1), 23, device=dev)},
+            Mode("decode", "dense"), st)
+    assert dec.device.type == "cuda"
+    torch.testing.assert_close(dec[:, 0], full[:, -1], atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "internvl2-2b",
+                                  "qwen3-moe-235b-a22b"])
+def test_lm_logits_on_the_card_follow_the_cpu(dev, name, record_property):
+    """The same parameters and inputs on the card and the CPU: with both
+    in float32 compute, logits within 1e-4 (what the card alone could get
+    wrong: TF32, another reduction order, a lost cast); as configured,
+    within max(2e-2, 1.5 x the CPU's own bfloat16 error against its
+    float32 run)."""
+    import copy
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model_init
+
+    cfg = get_arch(name + "-smoke")
+    model, _ = model_init(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    card = copy.deepcopy(model).to(dev)
+    inputs = _lm_inputs(cfg)
+    got = _lm_forward(card, cfg, inputs, dev)
+    want = _lm_forward(model, cfg, inputs, "cpu")
+    with _Float32Compute():
+        got32 = _lm_forward(card, cfg, inputs, dev)
+        want32 = _lm_forward(model, cfg, inputs, "cpu")
+    err32 = float(np.abs(got32 - want32).max())
+    record_property("max_abs_err_f32", err32)
+    np.testing.assert_allclose(got32, want32, atol=1e-4, rtol=0)
+    tol = max(2e-2, 1.5 * float(np.abs(want - want32).max()))
+    err = float(np.abs(got - want).max())
+    record_property("max_abs_err", err)
+    record_property("tolerance", tol)
+    assert err <= tol
+
+
+def test_continuous_batching_on_the_card_matches_isolated(dev):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model_init
+    from repro_torch.serve import ContinuousBatchingEngine, ServeEngine
+
+    cfg = get_arch("tinyllama-1.1b-smoke")
+    model, _ = model_init(None, cfg)
+    rng = _gen(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (12, 7, 12, 16, 9)]
+    engine = ContinuousBatchingEngine(cfg, model, slots=2, max_len=64)
+    rids = [engine.submit(p, max_new=6) for p in prompts]
+    done = engine.run_to_completion()
+    isolated = ServeEngine(cfg, model, max_len=64)
+    for rid, p in zip(rids, prompts):
+        want = isolated.generate(p[None], steps=6)
+        assert want.device.type == "cuda"
+        np.testing.assert_array_equal(done[rid], want.cpu().numpy()[0])
