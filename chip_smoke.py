@@ -89,22 +89,23 @@ solve_distributed the MR backends and the sharded top-k path on 4 ranks
           that share the card (``sharding.dist.spawn``; gloo, every
           collective through host memory): the Mandrill similarity stack
           built on every rank (bit-equal to this process's S), then
-          ``mr1d_stats`` and ``mr2d`` (2 x 2 grid) for 50 sweeps and
-          ``mr1d_transpose`` for 10, against ``dense_parallel`` on the card
-          (equal cluster counts, at most 0.1 % of points with another
-          exemplar); the blobs' sharded build (edge sets bit for bit the
-          fused build's), the default ``solve(x)`` in the group (routed to
-          ``dense_topk`` with the sharded build and sweep; decisions and
-          trace equal to the one-process default solve), and the sharded
-          sweeps with the allgather exchange under the converged stop (20
-          sweeps) and the psum exchange under the fixed one (50) (decisions
-          and traces equal to ``run_topk``'s on the fused lists); each of
-          the two checkpointed every 10 sweeps, crashed after the second
-          save and resumed (decisions, trace, sweep count, flag and every
-          rank's state block bit-equal to the plain sharded run; ms a save,
-          gather and write apart, bytes a step, ms a resume); the sharded
-          Borůvka on solve_graph's layout of the blobs (labels, rounds and
-          trace equal to the one-process loop on the card);
+          ``mr1d_stats`` and ``mr2d`` (2 x 2 grid) for 20 sweeps and
+          ``mr1d_transpose`` for 5, against ``dense_parallel`` on the card
+          at the same depth (equal cluster counts, at most 0.1 % of points
+          with another exemplar); the blobs' sharded build (edge sets bit
+          for bit the fused build's), the default ``solve(x)`` in the
+          group at 5 sweeps (routed to ``dense_topk`` with the sharded
+          build and sweep; decisions and trace equal to the one-process
+          default solve at 5 sweeps), and the sharded sweeps with the
+          allgather exchange under the converged stop (6 sweeps) and the
+          psum exchange under the fixed one (30) (decisions and traces
+          equal to ``run_topk``'s on the fused lists); each of the two
+          checkpointed (every 3 and every 10 sweeps), crashed after the
+          second save and resumed (decisions, trace, sweep count, flag and
+          every rank's state block bit-equal to the plain sharded run; ms a
+          save, gather and write apart, bytes a step, ms a resume); the
+          sharded Borůvka on solve_graph's layout of the blobs (labels,
+          rounds and trace equal to the one-process loop on the card);
           ``solve(edge_list)`` at 20,000 blobs, by default and with
           ``sweep="sharded"`` (the route, whether the mesh was used,
           decisions equal to one process); MapReduce K-means on the blobs
@@ -182,17 +183,46 @@ lm_serve  the LM serving path (``repro_torch.serve``, no kernel of its
           top-2 margin exceeds twice that; (e) ``python -m
           repro_torch.launch.serve --arch tinyllama-1.1b --steps 16``; the
           five kernels' launches over the phase (0)
+lm_train  LM training (``repro_torch.train``, no kernel of its own): (a)
+          tinyllama-1.1b at full width and depth (random parameters from a
+          generator seeded 0) trained by ``make_train_step`` (AdamW, the
+          warmup-cosine schedule at ``launch/train.py``'s defaults, each
+          layer recomputed in backward) for 20 steps of 8 x 512 tokens of
+          ``synthetic_token_stream(seed=0)``: ms a step (host clock around
+          each synchronised step, steps 2-20), tokens/s, peak memory;
+          loss, ce and the gradients finite at every step, the mean ce of
+          the last 5 steps below the first step's, and step 1 run twice
+          from the same state (loss and moments within 1e-4; what differs
+          is reported); (b) at full width cut to 2 layers, on the first
+          batch: ``microbatches=2`` against 1 (ce within 1e-4 and
+          parameters within 1e-5 at ``tests/test_train.py``'s schedule,
+          moments within 1e-4 in float32 compute) and top-k compression at
+          ratio 0.01 (each compressed leaf of ``opt.mu`` keeps its top
+          share, more only by ties); (c) one train step on the card
+          against the CPU on the ten ``-smoke`` configs and on tinyllama
+          cut to 2 layers (2 x 128 tokens): loss, ce, aux and the moments
+          within 1e-4 with both in float32 compute, within max(2e-2, 1.5 x
+          the CPU's own bfloat16 error) as configured, MoE routing equal;
+          (d) ``python -m repro_torch.launch.train --arch tinyllama-1.1b
+          --steps 5`` at full width, and on the ``-smoke`` config a run of
+          10 steps checkpointing every 5 and a second of 15 on the same
+          directory, which must restore step 10; the five kernels'
+          launches over the phase (0)
 profile   only with ``--profile``: ``torch.profiler`` traces of a 10-sweep
-          ``dense_fused`` solve, a 10-sweep ``dense_topk`` solve and the
-          two-stage build of the 200,000 blobs (neg_euclidean), device
-          time by kernel and the device's idle share
+          ``dense_fused`` solve, a 10-sweep ``dense_topk`` solve, the
+          two-stage build of the 200,000 blobs (neg_euclidean) and one
+          full-width tinyllama-1.1b train step (8 x 512; also with
+          ``--only lm_train``), device time by kernel, device events and
+          the device's idle share
 
 Then the card's name and power limit as nvidia-smi prints them, the
-kernels line ``{"kernels": [...]}`` (``lm_serve_launches``: each kernel's
-launches over the lm_serve phase), and last ``{"ok": true, "device":
-{...}}``. Any failed check exits non-zero with the traceback and without
-the last line; so does a machine without a CUDA device, or a directory
-without the repository's ``src/``.
+kernels line ``{"kernels": [...]}`` (``lm_serve_launches`` and
+``lm_train_launches``: each kernel's launches over the lm_serve and
+lm_train phases), and last ``{"ok": true, "device": {...}}``.
+``--only lm_serve`` or ``--only lm_train`` runs the env phase and that
+phase alone and stops without the last line. Any failed check exits
+non-zero with the traceback and without the last line; so does a machine
+without a CUDA device, or a directory without the repository's ``src/``.
 """
 from __future__ import annotations
 
@@ -1990,6 +2020,7 @@ def run_profile(label: dict, fn) -> None:
     busy = sum(us for us, _, _ in rows) / 1e6
     emit({"phase": "profile", **label, "wall_s": wall,
           "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+          "device_events": sum(c for _, c, _ in rows),
           "top": [{"name": k[:90], "calls": c, "device_ms": us / 1e3}
                   for us, c, k in rows[:20]]})
 
@@ -2010,14 +2041,45 @@ def profile_all(pixels, blobs) -> None:
                 lambda: build_topk_similarity(x, K_TOPK, cfg))
 
 
+def profile_train() -> None:
+    """Trace one train step of tinyllama-1.1b at full width (lm_train's
+    batch, after a first step)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import synthetic_token_stream
+    from repro_torch.models import Mode, model_init
+    from repro_torch.train import make_train_step
+    from repro_torch.train.loop import init_train_state
+
+    cfg = get_arch(LM_ARCH)
+    model, _ = model_init(torch.Generator(DEVICE).manual_seed(0), cfg,
+                          device=DEVICE)
+    state = [init_train_state(model)]
+    step = make_train_step(cfg, Mode("train", "dense"), lr_kwargs=TRAIN_LR)
+    batch = lm_tensors({"tokens": next(synthetic_token_stream(
+        cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0))}, DEVICE)
+
+    def one():
+        state[0], _ = step(state[0], batch)
+    run_profile({"train": LM_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ},
+                one)
+
+
 # -------------------------------------------------------------- distributed
 DIST_WORLD = 4           # ranks on the one card (gloo, host copies)
-TRANSPOSE_SWEEPS = 10    # mr1d_transpose moves ~0.68 GB a rank a sweep
-# the blobs' sharded sweeps: (name, stop, exchange, sweeps); the allgather
-# exchange is held at 20 sweeps (the blobs do not converge in 50, and each
-# sweep gathers 0.78 GB through host memory)
-DIST_SWEEPS = (("allgather_converged", "converged", "allgather", 20),
-               ("psum_fixed", "fixed", "psum", 50))
+# sweeps of the group's runs, each compared at the same depth: the MR
+# backends on the Mandrill stack (mr1d_transpose moves ~0.68 GB a rank a
+# sweep through host memory)
+MR_SWEEPS, TRANSPOSE_SWEEPS = 20, 5
+# the default solve in the group: its sharded allgather sweeps gather
+# 0.78 GB through host memory each, so it runs 5 sweeps, and so does its
+# one-process comparison
+DIST_SOLVE_SWEEPS = 5
+# the blobs' sharded sweeps: (name, stop, exchange, sweeps, checkpoint
+# every); the allgather exchange is held at 6 sweeps (the blobs do not
+# converge in 50, and each sweep gathers 0.78 GB through host memory), the
+# psum at 30; each checkpointed run crashes at its second save
+DIST_SWEEPS = (("allgather_converged", "converged", "allgather", 6, 3),
+               ("psum_fixed", "fixed", "psum", 30, 10))
 DIST_CKPT = ROOT / "build" / "chip_smoke_dist_ckpt"
 K_MEANS, KMEANS_ITERS = 16, 25   # the blobs' 16 centers, the default steps
 KMEANS_RTOL = 1e-5       # K-means centers and inertia across summations
@@ -2063,8 +2125,8 @@ def ckpt_timers(sync):
 
 
 def dist_checkpoint(out, workers, s3k, idx, cfg, name, stop, exchange,
-                    sweeps, sync) -> None:
-    """(c): the sharded sweeps of ``name`` checkpointed every CKPT_EVERY
+                    sweeps, every, sync) -> None:
+    """(c): the sharded sweeps of ``name`` checkpointed every ``every``
     sweeps, uninterrupted, then crashed after the second save and resumed;
     each run's decisions, trace and this rank's state block, digested for
     the parent to hold to the plain sharded run."""
@@ -2075,7 +2137,7 @@ def dist_checkpoint(out, workers, s3k, idx, cfg, name, stop, exchange,
 
     d = DIST_CKPT / name
     ck = cfg.replace(max_iterations=sweeps, stop=stop, exchange=exchange,
-                     checkpoint_every=CKPT_EVERY, checkpoint_dir=str(d))
+                     checkpoint_every=every, checkpoint_dir=str(d))
     first = workers.axis("workers").index == 0
     times, undo = ckpt_timers(sync)
     try:
@@ -2175,8 +2237,8 @@ def dist_rank(pixels, blobs, device: str, graph_path: str,
     s, s3 = run("mandrill_similarity", workers, stack)
     out["mandrill_similarity"]["digest"] = digest(s)
     del s
-    for backend, sweeps, mesh in (("mr1d_stats", cfg.max_iterations, workers),
-                                  ("mr2d", cfg.max_iterations, grid),
+    for backend, sweeps, mesh in (("mr1d_stats", MR_SWEEPS, workers),
+                                  ("mr2d", MR_SWEEPS, grid),
                                   ("mr1d_transpose", TRANSPOSE_SWEEPS,
                                    workers)):
         res = run(backend, mesh, lambda: solve(
@@ -2195,11 +2257,11 @@ def dist_rank(pixels, blobs, device: str, graph_path: str,
     # the default call: in a group of 4 it routes to dense_topk with the
     # sharded build (N >= 8,192) and the sharded sweep (N >= 32,768)
     res = run("topk_solve", workers, lambda: solve(
-        blobs, cfg.replace(mesh=workers)))
+        blobs, cfg.replace(mesh=workers, max_iterations=DIST_SOLVE_SWEEPS)))
     out["topk_solve"].update(exemplars=res.exemplars, trace=res.trace,
                              n_sweeps=res.n_sweeps, backend=res.backend)
     del res
-    for name, stop, exchange, sweeps in DIST_SWEEPS:
+    for name, stop, exchange, sweeps, every in DIST_SWEEPS:
         st, e, ns, conv, tr = run(name, workers, lambda: run_topk_sharded(
             s3k, idx, workers, max_iterations=sweeps,
             damping=cfg.damping, stop=stop, exchange=exchange))
@@ -2208,7 +2270,7 @@ def dist_rank(pixels, blobs, device: str, graph_path: str,
                          n_sweeps=ns, converged=conv, trace=tr[:ns])
         del st, e
         dist_checkpoint(out, workers, s3k, idx, cfg, name, stop, exchange,
-                        sweeps, sync)
+                        sweeps, every, sync)
     del s3k, idx
     torch.cuda.empty_cache()
 
@@ -2255,8 +2317,7 @@ def dist_rank(pixels, blobs, device: str, graph_path: str,
     return out
 
 
-def run_solve_distributed(pixels, blobs, topk_default, graph_one,
-                          init_centers) -> dict:
+def run_solve_distributed(pixels, blobs, graph_one, init_centers) -> dict:
     """The MR backends, the sharded top-k path (plain and checkpointed),
     the sharded Borůvka, ``solve(edge_list)`` and MapReduce K-means on
     DIST_WORLD ranks that share the one card, against the one-process
@@ -2274,7 +2335,7 @@ def run_solve_distributed(pixels, blobs, topk_default, graph_one,
     n, nb = pixels.shape[0], blobs.shape[0]
     # -- the one-process oracles, on this card
     dense = {}
-    for sweeps in (cfg.max_iterations, TRANSPOSE_SWEEPS):
+    for sweeps in (MR_SWEEPS, TRANSPOSE_SWEEPS):
         t0 = time.perf_counter()
         dense[sweeps] = solve(pixels, backend="dense_parallel",
                               max_iterations=sweeps, device=DEVICE)
@@ -2288,11 +2349,13 @@ def run_solve_distributed(pixels, blobs, topk_default, graph_one,
     s3k, idx = topk.build_from_points(x, K_TOPK, cfg.levels)   # fused
     fused_digest = digest(s3k[0, :, 1:], idx[:, 1:])
     oracle = {}
-    for name, stop, _, sweeps in DIST_SWEEPS:
+    for name, stop, _, sweeps, _ in DIST_SWEEPS:
         _, e, ns, conv, tr = topk.run_topk(
             s3k, idx, max_iterations=sweeps, damping=cfg.damping, stop=stop)
         oracle[name] = (e.cpu().numpy(), ns, conv, tr[:ns])
     del s3k, idx
+    topk_default = solve(blobs, max_iterations=DIST_SOLVE_SWEEPS,
+                         device=DEVICE)
     small, _ = gaussian_blobs_n(N_ORACLE)
     el = EdgeList.from_points(torch.from_numpy(small).to(DEVICE), K_GRAPH)
     graph_small = solve(el, device=DEVICE)
@@ -2373,7 +2436,7 @@ def run_solve_distributed(pixels, blobs, topk_default, graph_one,
                and r["topk_solve"]["n_sweeps"] == topk_default.n_sweeps
                for r in ranks)
     emit({"phase": "solve_distributed", "step": "sharded solve",
-          "backend": sol["backend"], "n": nb,
+          "backend": sol["backend"], "n": nb, "sweeps": DIST_SOLVE_SWEEPS,
           "wall_s": per_rank("topk_solve", "wall_s"),
           "bytes_sent": per_rank("topk_solve", "bytes_sent"),
           "launches": per_rank("topk_solve", "launches"),
@@ -2381,7 +2444,7 @@ def run_solve_distributed(pixels, blobs, topk_default, graph_one,
     check(sol["backend"] == "dense_topk",
           f"the default solve in a group chose {sol['backend']}")
     check(same, "sharded solve: decisions differ from the default solve")
-    for name, stop, exchange, sweeps in DIST_SWEEPS:
+    for name, stop, exchange, sweeps, every in DIST_SWEEPS:
         e, ns, conv, tr = oracle[name]
         got = r0[name]
         equal = all(np.array_equal(r[name]["exemplars"], e)
@@ -2401,7 +2464,7 @@ def run_solve_distributed(pixels, blobs, topk_default, graph_one,
                   nb, K_TOPK, cfg.levels, DIST_WORLD, exchange)})
         check(equal and trace_equal,
               f"sharded {exchange} {stop}: decisions differ")
-        check_dist_checkpoint(ranks, name, stop, exchange, sweeps)
+        check_dist_checkpoint(ranks, name, stop, exchange, sweeps, every)
 
     graph_checks(ranks, graph_one, graph_small)
     kmeans_checks(ranks, km)
@@ -2440,7 +2503,8 @@ def run_solve_distributed(pixels, blobs, topk_default, graph_one,
     return launches
 
 
-def check_dist_checkpoint(ranks, name, stop, exchange, sweeps) -> None:
+def check_dist_checkpoint(ranks, name, stop, exchange, sweeps,
+                          every) -> None:
     """(c): every rank's checkpointed, crashed and resumed runs against its
     plain sharded run of the same exchange and depth: decisions, trace,
     sweep count, flag and its state block bit-equal; the crash after the
@@ -2465,7 +2529,7 @@ def check_dist_checkpoint(ranks, name, stop, exchange, sweeps) -> None:
         7 * i:7 * i + 7]) for i in range(saves)] for r in ranks]
     emit({"phase": "solve_distributed", "step": "checkpointed sharded sweeps",
           "exchange": exchange, "stop": stop, "sweeps": sweeps,
-          "every": CKPT_EVERY, "n_sweeps": whole["n_sweeps"],
+          "every": every, "n_sweeps": whole["n_sweeps"],
           "converged": whole["converged"],
           "wall_s": {label: [r[f"{name}_{label}"]["wall_s"] for r in ranks]
                      for label in ("checkpointed", "crashed", "resumed")},
@@ -2487,7 +2551,7 @@ def check_dist_checkpoint(ranks, name, stop, exchange, sweeps) -> None:
     check(all(r[f"{name}_crashed"]["crashed"] for r in ranks)
           and crashed["boundaries"] == 2,
           f"{name}: the injected crash did not fire at the second save")
-    check(saves == -(-whole["n_sweeps"] // CKPT_EVERY)
+    check(saves == -(-whole["n_sweeps"] // every)
           and len(whole["times_ms"]["gather"]) == 7 * saves + 1
           and len(whole["times_ms"]["write"]) == saves
           and resumed["boundaries"] == saves - 2,
@@ -3180,10 +3244,349 @@ def run_lm_serve(smi: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- lm_train
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+TRAIN_LR = {"peak": 3e-3, "warmup": max(TRAIN_STEPS // 10, 1),
+            "total": TRAIN_STEPS}          # launch/train.py's defaults
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 128    # the 2-layer step on the CPU
+COMPRESS_RATIO, COMPRESS_MIN_SIZE = 0.01, 65536   # make_train_step's
+# moments of two steps compared leaf by leaf, relative to max(the leaf's
+# largest |value|, this share of the tree's largest): a key projection's
+# bias has a true gradient of 0 (the softmax ignores a shift common to a
+# query's logits), so its moments are rounding noise that any two
+# summation orders make differently (tests/_torch_train.py)
+MOMENT_NOISE_FLOOR = 1e-3
+TRAIN_CKPT = ROOT / "build" / "chip_smoke_train_ckpt"
+
+
+def params_gap(a, b) -> float:
+    """Largest |difference| of two models' parameters."""
+    with torch.no_grad():
+        return max(float((x - y).abs().max()) for x, y in zip(
+            a.parameters(), b.parameters()))
+
+
+def moment_gap(a: dict, b: dict) -> float:
+    """Largest gap of two moment dicts (parameter name -> tensor, on any
+    device), each leaf relative to max(its largest |value| in ``b``,
+    MOMENT_NOISE_FLOOR x the largest of all ``b``)."""
+    top = max(float(t.abs().max()) for t in b.values())
+    return max(float((a[k].float().cpu() - b[k].float().cpu()).abs().max())
+               / max(float(b[k].abs().max()), MOMENT_NOISE_FLOOR * top)
+               for k in b)
+
+
+def train_once(model, cfg, inputs: dict, dev, **kw):
+    """One train step of a copy of ``model`` on ``dev`` (``launch/train.py``'s
+    schedule): (the new state, metrics as floats)."""
+    from repro_torch.models import Mode
+    from repro_torch.train import make_train_step
+    from repro_torch.train.loop import init_train_state
+
+    lr = kw.pop("lr_kwargs", TRAIN_LR)
+    state = init_train_state(copy.deepcopy(model).to(dev))
+    step = make_train_step(cfg, Mode("train", "dense"), lr_kwargs=lr, **kw)
+    state, m = step(state, lm_tensors(inputs, dev))
+    return state, {k: float(v) for k, v in m.items()}
+
+
+def train_card_vs_cpu(cfg, model, inputs: dict) -> dict:
+    """(c) one train step of the same parameters and batch on the card and
+    on the CPU: loss, ce and aux, and the moments (the clipped gradients
+    and their squares), as configured and with both in float32 compute."""
+    runs = {}
+    for f32 in (False, True):
+        with float32_compute() if f32 else contextlib.nullcontext():
+            card, m_card = train_once(model, cfg, inputs, DEVICE)
+            cpu, m_cpu = train_once(model, cfg, inputs, "cpu")
+        runs[f32] = card, m_card, cpu, m_cpu
+    (card, m_card, cpu, m_cpu), (card32, m_card32, cpu32, m_cpu32) = \
+        runs[False], runs[True]
+    row = {"arch": cfg.name, "loss": m_card["loss"], "loss_cpu": m_cpu["loss"],
+           "grad_finite": bool(m_card["grad_finite"]
+                               and m_card32["grad_finite"])}
+    ok = row["grad_finite"]
+    for key in ("loss", "ce", "aux"):
+        err32 = abs(m_card32[key] - m_cpu32[key])
+        own = abs(m_cpu[key] - m_cpu32[key])
+        err = abs(m_card[key] - m_cpu[key])
+        tol = max(LM_ATOL, LM_REF_SHARE * own)
+        row[key] = {"f32_err": err32, "err": err, "cpu_bf16_err": own,
+                    "tol": tol}
+        ok = ok and err32 <= LM_F32_ATOL and err <= tol
+    for field in ("mu", "nu"):
+        def get(s):
+            return getattr(s.opt, field)
+        err32 = moment_gap(get(card32), get(cpu32))
+        own = moment_gap(get(cpu), get(cpu32))
+        err = moment_gap(get(card), get(cpu))
+        tol = max(LM_ATOL, LM_REF_SHARE * own)
+        row[field] = {"f32_err": err32, "err": err, "cpu_bf16_err": own,
+                      "tol": tol}
+        ok = ok and err32 <= LM_F32_ATOL and err <= tol
+    row["ok"] = bool(ok)
+    return row
+
+
+def train_smoke_on_card_and_cpu(name: str) -> dict:
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model_init
+
+    cfg = get_arch(name + "-smoke")
+    model, _ = model_init(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    rng = np.random.default_rng(0)
+    inputs = {"tokens": rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32)}
+    if cfg.family == "audio":
+        inputs["frames"] = (0.02 * rng.standard_normal(
+            (2, cfg.enc_seq, cfg.d_model))).astype(np.float32)
+    if cfg.family == "vlm":
+        inputs["img_embeds"] = (0.02 * rng.standard_normal(
+            (2, cfg.img_tokens, cfg.d_model))).astype(np.float32)
+    row = train_card_vs_cpu(cfg, model, inputs)
+    if cfg.n_experts:
+        card = copy.deepcopy(model).to(DEVICE)
+        differs = 0
+        layers = list(zip(moe_routing(card, cfg, inputs, DEVICE),
+                          moe_routing(model, cfg, inputs, "cpu")))
+        for (mod_card, x_card), (mod_cpu, x_cpu) in layers:
+            on_card = route(mod_card, x_card, cfg)
+            differs += not all(np.array_equal(a, b) for a, b in zip(
+                on_card, route(mod_cpu, x_cpu, cfg)))
+        row.update(moe_layers=len(layers), routing_differs=differs)
+        row["ok"] = row["ok"] and differs == 0
+    return row
+
+
+def start_train_process(args: list):
+    """``python -m repro_torch.launch.train ARGS``, started."""
+    return args, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *args], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+
+def finish_train_process(started, timeout: int = 600):
+    """Wait for a started driver (killed past ``timeout``): (its row: exit
+    code, wall, the losses it printed, whether all are finite; its
+    standard output's lines)."""
+    args, t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    lines = out.strip().splitlines()
+    losses = [float(line.split("loss=")[1].split()[0]) for line in lines
+              if line.startswith("[train] step")]
+    return {"args": args, "rc": proc.returncode,
+            "seconds": time.perf_counter() - t0, "stdout": lines[-4:],
+            "stderr": err.strip().splitlines()[-3:],
+            "losses": losses, "finite": bool(losses)
+            and bool(np.isfinite(losses).all())}, lines
+
+
+def train_process(args: list):
+    return finish_train_process(start_train_process(args))
+
+
+def run_lm_train(smi: str) -> dict:
+    """(a) tinyllama-1.1b at full width and depth trained for TRAIN_STEPS
+    steps on the card, (b) microbatches and top-k compression at full width
+    cut to 2 layers, (c) one train step on the card against the CPU on the
+    ten reduced architectures and on tinyllama cut to 2 layers, (d) the
+    training driver as processes, a restart from its checkpoint included.
+    Returns the five kernels' launches over the phase (all 0)."""
+    from repro_torch.configs import arch_names, get_arch
+    from repro_torch.data.pipeline import synthetic_token_stream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Mode, model_init
+    from repro_torch.train import make_train_step
+    from repro_torch.train.loop import init_train_state
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    cfg = get_arch(LM_ARCH)
+    stream = synthetic_token_stream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                    seed=0)
+    batches = [{"tokens": next(stream)} for _ in range(TRAIN_STEPS)]
+    on_card = [lm_tensors(b, DEVICE) for b in batches]
+
+    # (a) full width and depth: step 1 twice from the same state, then on
+    def fresh():
+        model, _ = model_init(torch.Generator(DEVICE).manual_seed(0), cfg,
+                              device=DEVICE)
+        return init_train_state(model)
+
+    step = make_train_step(cfg, Mode("train", "dense"), lr_kwargs=TRAIN_LR)
+    state = fresh()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    (state, m), first_s = timed_sync(lambda: step(state, on_card[0]))
+    again, m_again = step(fresh(), on_card[0])
+    rerun = {"loss_equal": float(m["loss"]) == float(m_again["loss"]),
+             "loss_gap": abs(float(m["loss"]) - float(m_again["loss"])),
+             "params_max_abs_gap": params_gap(state.params, again.params),
+             "params_bit_equal": all(torch.equal(a, b) for a, b in zip(
+                 state.params.parameters(), again.params.parameters())),
+             "mu_gap": moment_gap(again.opt.mu, state.opt.mu),
+             "nu_gap": moment_gap(again.opt.nu, state.opt.nu),
+             "mu_bit_equal": all(torch.equal(again.opt.mu[k], v)
+                                 for k, v in state.opt.mu.items())}
+    del again
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times = [m], []
+    for batch in on_card[1:]:
+        (state, m), dt = timed_sync(lambda: step(state, batch))
+        metrics.append(m)
+        times.append(dt)
+    peak = torch.cuda.max_memory_allocated()
+    rows = [{k: float(v) for k, v in mm.items()} for mm in metrics]
+    ce = [r["ce"] for r in rows]
+    ms = float(np.mean(times)) * 1e3
+    row = {"phase": "lm_train", "step": "full width", "arch": LM_ARCH,
+           "card": smi, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+           "first_step_ms": first_s * 1e3,
+           "ms_per_step": ms, "ms_per_step_min": min(times) * 1e3,
+           "ms_per_step_max": max(times) * 1e3,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+           "peak_mem_gb": peak / 1e9,
+           "loss": [r["loss"] for r in rows], "ce": ce,
+           "first_ce": ce[0], "last5_mean_ce": float(np.mean(ce[-5:])),
+           "all_finite": all(np.isfinite([r["loss"], r["ce"]]).all()
+                             and r["grad_finite"] for r in rows),
+           "step_1_twice": rerun}
+    emit(row)
+    check(row["all_finite"], f"lm_train: a loss or a gradient is not "
+          f"finite: {row['loss']}")
+    check(row["last5_mean_ce"] < row["first_ce"],
+          f"lm_train: ce did not fall: {ce}")
+    check(rerun["loss_gap"] <= LM_F32_ATOL
+          and rerun["mu_gap"] <= LM_F32_ATOL
+          and rerun["nu_gap"] <= LM_F32_ATOL,
+          f"lm_train: two runs of step 1 disagree: {rerun}")
+    del state
+    torch.cuda.empty_cache()
+
+    # (b) microbatches and compression at full width, 2 layers
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    model2, _ = model_init(torch.Generator(DEVICE).manual_seed(0), cfg2,
+                           device=DEVICE)
+    ref_lr = {"peak": 1e-3, "warmup": 1, "total": 10}   # test_train.py's
+    micro = {}
+    for f32 in (False, True):
+        with float32_compute() if f32 else contextlib.nullcontext():
+            one, m1 = train_once(model2, cfg2, batches[0], DEVICE,
+                                 lr_kwargs=ref_lr)
+            two, m2 = train_once(model2, cfg2, batches[0], DEVICE,
+                                 lr_kwargs=ref_lr, microbatches=2)
+        micro["f32" if f32 else "bf16"] = {
+            "ce_gap": abs(m1["ce"] - m2["ce"]),
+            "params_max_abs_gap": params_gap(one.params, two.params),
+            "mu_gap": moment_gap(two.opt.mu, one.opt.mu),
+            "nu_gap": moment_gap(two.opt.nu, one.opt.nu)}
+        del one, two
+    comp, mc = train_once(model2, cfg2, batches[0], DEVICE,
+                          compress="topk", compress_ratio=COMPRESS_RATIO,
+                          compress_min_size=COMPRESS_MIN_SIZE)
+    leaves = []
+    for name, mu in comp.opt.mu.items():
+        n = mu.numel()
+        kept = int((mu != 0).sum())
+        if n < COMPRESS_MIN_SIZE:           # not compressed
+            leaves.append({"leaf": name, "n": n, "compressed": False,
+                           "kept": kept})
+            continue
+        k = max(1, int(n * COMPRESS_RATIO))
+        smallest = mu[mu != 0].abs().min()
+        ties = int((mu.abs() == smallest).sum())
+        leaves.append({"leaf": name, "n": n, "compressed": True, "k": k,
+                       "kept": kept, "kept_share": kept / n,
+                       "ties_at_threshold": ties,
+                       "ok": k <= kept <= k + ties - 1})
+    row = {"phase": "lm_train", "step": "microbatches and compression",
+           "arch": cfg2.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "microbatches_2_vs_1": micro, "compress_ratio": COMPRESS_RATIO,
+           "compress_grad_finite": bool(mc["grad_finite"]),
+           "compressed_leaves": sum(l["compressed"] for l in leaves),
+           "leaves": leaves}
+    emit(row)
+    check(micro["f32"]["ce_gap"] <= LM_F32_ATOL
+          and micro["bf16"]["ce_gap"] <= LM_F32_ATOL
+          and micro["f32"]["params_max_abs_gap"] <= 1e-5
+          and micro["bf16"]["params_max_abs_gap"] <= 1e-5
+          and micro["f32"]["mu_gap"] <= LM_F32_ATOL
+          and micro["f32"]["nu_gap"] <= LM_F32_ATOL,
+          f"lm_train: microbatches=2 is off microbatches=1: {micro}")
+    check(row["compress_grad_finite"] and row["compressed_leaves"] > 0
+          and all(l.get("ok", True) for l in leaves),
+          f"lm_train: compression kept other than the top share: {row}")
+    del comp
+    torch.cuda.empty_cache()
+
+    # (c) the card against the CPU
+    rows = [train_smoke_on_card_and_cpu(name) for name in arch_names()]
+    emit({"phase": "lm_train", "step": "card vs cpu, -smoke", "archs": rows})
+    check(all(r["ok"] for r in rows),
+          f"lm_train: the card is off the CPU: "
+          f"{[r for r in rows if not r['ok']]}")
+    cpu2 = copy.deepcopy(model2).cpu()
+    del model2
+    rng = np.random.default_rng(1)
+    inputs = {"tokens": rng.integers(0, cfg.vocab, (
+        TRAIN_CPU_BATCH, TRAIN_CPU_SEQ)).astype(np.int32)}
+    t0 = time.perf_counter()
+    row = train_card_vs_cpu(cfg2, cpu2, inputs)
+    row.update(phase="lm_train", step="card vs cpu, 2 layers full width",
+               batch=TRAIN_CPU_BATCH, seq=TRAIN_CPU_SEQ,
+               seconds=time.perf_counter() - t0)
+    emit(row)
+    check(row["ok"], f"lm_train 2-layer tinyllama: the card is off the "
+          f"CPU: {row}")
+    del cpu2
+    torch.cuda.empty_cache()
+
+    # (d) the driver, as processes: full width, and beside it a restart on
+    # -smoke (each process takes ~10 s to import torch and reach the card)
+    import shutil
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    ck = ["--arch", LM_ARCH, "--smoke", "--ckpt-dir", str(TRAIN_CKPT),
+          "--ckpt-every", "5"]
+    started = start_train_process(["--arch", LM_ARCH, "--steps", "5"])
+    try:
+        first, _ = train_process(ck + ["--steps", "10"])
+        second, lines = train_process(ck + ["--steps", "15"])
+    finally:
+        full, _ = finish_train_process(started)
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    emit({"phase": "lm_train", "step": "driver, full width", **full})
+    check(full["rc"] == 0 and full["finite"],
+          f"launch.train at full width failed: {full}")
+    restored = "[train] restored step 10" in lines
+    emit({"phase": "lm_train", "step": "driver, restart", "first": first,
+          "second": second, "restored_step_10": restored})
+    check(first["rc"] == 0 and second["rc"] == 0 and restored
+          and first["finite"] and second["finite"],
+          f"launch.train restart failed: {first} {second}")
+    launches = launch_counts()
+    emit({"phase": "lm_train", "step": "done", "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    check(not any(launches.values()),
+          f"lm_train: a hand-written kernel ran on the LM path: {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace a short fused solve with torch.profiler")
+    ap.add_argument("--only", choices=["lm_serve", "lm_train"],
+                    help="run the env phase and this one LM phase (they "
+                    "need no kernel built), print its launches, and stop "
+                    "without the last line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -3203,6 +3606,14 @@ def main() -> int:
           "device_count": torch.cuda.device_count(), "nvidia_smi": smi,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+    if args.only:
+        run = {"lm_serve": run_lm_serve, "lm_train": run_lm_train}
+        launches = run[args.only](smi)
+        if args.profile and args.only == "lm_train":
+            profile_train()
+        print(smi, flush=True)
+        emit({"only": args.only, "launches": launches})
+        return 0
 
     t0 = time.perf_counter()
     _build.lib()
@@ -3234,17 +3645,19 @@ def main() -> int:
     # the port's default initial centers for seed 0 (no step taken)
     init_centers = kmeans(torch.from_numpy(blobs).to(DEVICE), K_MEANS,
                           iterations=0, seed=0).centers.cpu().numpy()
-    similarity_paths = run_solve_distributed(pixels, blobs, topk_res,
-                                             graph_one, init_centers)
+    similarity_paths = run_solve_distributed(pixels, blobs, graph_one,
+                                             init_centers)
     del topk_res
     paths.update(run_baselines(blobs, truth, init_centers))
     paths.update(run_solve_checkpoint(blobs, coarsen_res))
     paths.update(run_serve(smi))
     lm_launches = run_lm_serve(smi)
+    train_launches = run_lm_train(smi)
     emit({"phase": "launches", "topk_build_by_path": paths})
     check(all(paths.values()), f"a path launched no topk_build: {paths}")
     if args.profile:
         profile_all(pixels, blobs)
+        profile_train()
 
     kernels = []
     for name, fn_line in (("similarity", "similarity.py:35"),
@@ -3257,7 +3670,8 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{fn_line}",
             "launches": launches[name], **summary[name],
-            "lm_serve_launches": lm_launches[name]})
+            "lm_serve_launches": lm_launches[name],
+            "lm_train_launches": train_launches[name]})
         if name == "topk_build":
             kernels[-1]["launches_by_path"] = paths
         if name == "similarity":

@@ -18,7 +18,10 @@ The LM scaffolding's parameters cross the same way: the reference's
 parameter tree (``np.asarray`` of each leaf, nested dicts) loads into the
 port's model, whose parameter names follow the tree's key paths; a stacked
 unit's leading axis is unstacked into its ``ModuleList``. Decode states
-(``KVCache`` and the recurrent states, in either layout) cross likewise.
+(``KVCache`` and the recurrent states, in either layout) cross likewise,
+and so does the training state (``TrainState``: parameters, the Adam
+moments, the counts), on disk too: its tree carries the reference's key
+paths.
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ from repro_torch.models.layers.xlstm import MLSTMState, SLSTMState
 from repro_torch.solver import checkpointing
 from repro_torch.solver.engine import resolve_device
 from repro_torch.solver.topk import TopKState
+from repro_torch.train.loop import TrainState
+from repro_torch.train.optimizer import AdamWState
 
 
 def hap_state_from_numpy(arrays: Sequence[np.ndarray],
@@ -103,14 +108,57 @@ def lm_params_from_numpy(tree: dict, cfg, device=None) -> nn.Module:
 def lm_params_to_numpy(model: nn.Module) -> dict:
     """The port's model -> the reference's parameter tree (nested dicts of
     numpy arrays, each ``ModuleList`` stacked on a leading unit axis)."""
-    if isinstance(model, nn.ModuleList):
-        layers = [lm_params_to_numpy(m) for m in model]
+    return _module_tree(model, dict(model.named_parameters()), "")
+
+
+def _module_tree(module: nn.Module, values: dict, prefix: str) -> dict:
+    """The reference's tree of ``module``'s parameters, each leaf taken
+    from ``values`` by its full parameter name, as numpy."""
+    if isinstance(module, nn.ModuleList):
+        layers = [_module_tree(m, values, f"{prefix}{i}.")
+                  for i, m in enumerate(module)]
         return tree_map(lambda *xs: np.stack(xs), *layers)
-    out = {name: p.detach().cpu().numpy()
-           for name, p in model.named_parameters(recurse=False)}
-    for name, child in model.named_children():
-        out[name] = lm_params_to_numpy(child)
+    out = {name: values[prefix + name].detach().cpu().numpy()
+           for name, _ in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        out[name] = _module_tree(child, values, f"{prefix}{name}.")
     return out
+
+
+# ---------------------------------------------------------- LM training
+def train_state_from_numpy(tree, cfg, device=None) -> TrainState:
+    """The reference's training state for ``cfg`` (its ``TrainState`` or
+    any tree with ``params``, ``opt.mu``, ``opt.nu``, ``opt.count`` and
+    ``step``, numpy leaves; what ``CheckpointManager.restore_latest``
+    returns) -> the port's ``TrainState`` on ``device`` (None: the card;
+    raises without one): the model, the moments keyed by its parameter
+    names, int32 ``count`` and ``step``."""
+    device = resolve_device(device)
+    model = lm_params_from_numpy(tree.params, cfg, device)
+    mu, nu = ({n: p.detach() for n, p in
+               lm_params_from_numpy(t, cfg, device).named_parameters()}
+              for t in (tree.opt.mu, tree.opt.nu))
+
+    def scalar(a):
+        return torch.tensor(int(np.asarray(a)), dtype=torch.int32,
+                            device=device)
+    return TrainState(model, AdamWState(mu, nu, scalar(tree.opt.count)),
+                      scalar(tree.step))
+
+
+def train_state_to_numpy(state: TrainState) -> TrainState:
+    """The port's ``TrainState`` -> the reference's ``TrainState`` tree
+    with numpy leaves (the parameter tree and both moments with stacked
+    units, int32 scalars ``opt.count`` and ``step``). Its key paths are
+    the reference's, so ``CheckpointManager.save`` of it writes what the
+    reference writes for its state."""
+    model = state.params
+    return TrainState(
+        params=lm_params_to_numpy(model),
+        opt=AdamWState(mu=_module_tree(model, state.opt.mu, ""),
+                       nu=_module_tree(model, state.opt.nu, ""),
+                       count=np.asarray(int(state.opt.count), np.int32)),
+        step=np.asarray(int(state.step), np.int32))
 
 
 def _load(module: nn.Module, tree, path: str) -> None:

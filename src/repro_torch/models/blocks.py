@@ -33,6 +33,15 @@ class Mode(NamedTuple):
     kv_chunk: int = 1024
 
 
+def remat_units(mode: Mode) -> bool:
+    """Train mode under autograd: the layer loops keep each unit's input
+    and recompute its activations in backward
+    (``torch.utils.checkpoint``), as the reference wraps its scan bodies
+    in ``jax.checkpoint(policy=nothing_saveable)``. Serving runs under
+    ``inference_mode`` and never recomputes."""
+    return mode.kind == "train" and torch.is_grad_enabled()
+
+
 def _no_aux(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 

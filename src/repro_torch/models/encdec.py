@@ -16,9 +16,10 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.blocks import Mode
+from repro_torch.models.blocks import Mode, remat_units
 from repro_torch.models.layers.attention import (
     Attention, _sdpa, attn_apply, cache_specs, init_cache,
 )
@@ -124,6 +125,28 @@ def _cross_kv(p: Attention, cfg: ArchConfig, enc: torch.Tensor):
     return k, v
 
 
+def _dec_layer(p: DecLayer, cfg: ArchConfig, x, positions, mode: Mode,
+               ck, cv, cache):
+    """One decoder layer: causal self-attention (over ``cache`` if given),
+    cross-attention over (ck, cv), the MLP. -> (x, the new cache)."""
+    h, cache = attn_apply(
+        p.self, p.norm1(x), positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+        head_dim=cfg.resolved_head_dim, rope=False, impl=mode.attn_impl,
+        q_chunk=mode.q_chunk, kv_chunk=mode.kv_chunk, cache=cache)
+    x = x + h
+    x = x + _cross_attend(p.cross, cfg, p.norm2(x), ck, cv)
+    return x + p.mlp(p.norm3(x)), cache
+
+
+def _train_layer_fn(p: DecLayer, cfg: ArchConfig, positions, mode: Mode):
+    """A decoder layer without state as a function of (x, enc): what
+    train mode recomputes in backward."""
+    def run(x, enc):
+        ck, cv = _cross_kv(p.cross, cfg, enc)
+        return _dec_layer(p, cfg, x, positions, mode, ck, cv, None)[0]
+    return run
+
+
 # ------------------------------------------------------------------ decode
 def encdec_apply(
     params: EncDec, cfg: ArchConfig, tokens: torch.Tensor,
@@ -131,28 +154,29 @@ def encdec_apply(
     frames: Optional[torch.Tensor] = None,
     state: Optional[EncDecState] = None,
 ) -> tuple[torch.Tensor, Optional[EncDecState], torch.Tensor]:
-    """Train: frames, no state. Prefill: frames and a state (filled with
+    """Train: frames, no state (each decoder layer checkpointed under
+    autograd, ``remat_units``). Prefill: frames and a state (filled with
     the self caches and the cross K/V). Decode: a state; frames ignored."""
     x = apply_embedding(params.embed, tokens)
     x = x + sinusoid(positions, cfg.d_model).to(x.dtype)
     enc = encode(params, cfg, frames, mode) if frames is not None else None
     have_state = state is not None
+    remat = remat_units(mode) and not have_state
     caches, cross = [], []
     for i, p in enumerate(params.dec_units):
+        if remat:
+            # the reference's jax.checkpoint(nothing_saveable) of its scan
+            # body: a layer keeps its inputs, recomputes the rest in backward
+            x = checkpoint(_train_layer_fn(p, cfg, positions, mode), x, enc,
+                           use_reentrant=False)
+            continue
         if have_state and enc is None:     # decode: the cached cross K/V
             ck, cv = state.cross_k[i], state.cross_v[i]
         else:
             ck, cv = _cross_kv(p.cross, cfg, enc)
         cache = (tree_map(lambda t: t[i], state.self_cache)
                  if have_state else None)
-        h, cache = attn_apply(
-            p.self, p.norm1(x), positions, n_heads=cfg.n_heads,
-            n_kv=cfg.n_kv, head_dim=cfg.resolved_head_dim, rope=False,
-            impl=mode.attn_impl, q_chunk=mode.q_chunk,
-            kv_chunk=mode.kv_chunk, cache=cache)
-        x = x + h
-        x = x + _cross_attend(p.cross, cfg, p.norm2(x), ck, cv)
-        x = x + p.mlp(p.norm3(x))
+        x, cache = _dec_layer(p, cfg, x, positions, mode, ck, cv, cache)
         caches.append(cache)
         cross.append((ck, cv))
 

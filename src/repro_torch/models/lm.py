@@ -17,9 +17,12 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.blocks import BLOCKS, Mode, init_block_state
+from repro_torch.models.blocks import (
+    BLOCKS, Mode, init_block_state, remat_units,
+)
 from repro_torch.models.layers import xlstm as xl
 from repro_torch.models.layers.attention import cache_specs
 from repro_torch.models.layers.common import (
@@ -120,6 +123,19 @@ def lm_state_specs(cfg: ArchConfig, data_axes=("pod", "data"),
 
 
 # ------------------------------------------------------------------ apply
+def _unit_fn(params: LM, cfg: ArchConfig, pat: list[str], i: int,
+             positions: torch.Tensor, mode: Mode):
+    """Unit ``i`` (every slot of the pattern) as a function of (x, aux),
+    without decode state: what train mode recomputes in backward."""
+    def run(x, aux):
+        for j, kind in enumerate(pat):
+            x, _, a = params.units[f"{j}_{kind}"][i](cfg, x, positions, None,
+                                                     mode)
+            aux = aux + a
+        return x, aux
+    return run
+
+
 def lm_apply(
     params: LM, cfg: ArchConfig, tokens: torch.Tensor,
     positions: torch.Tensor, mode: Mode, states=None, prefix_embeds=None,
@@ -127,7 +143,8 @@ def lm_apply(
     """tokens (B, S_tok) int; positions (B, S_total).
 
     -> (logits (B, S_total, vocab_padded) float32, new states or None,
-    aux loss). The given states are not modified."""
+    aux loss). The given states are not modified. In train mode under
+    autograd each pattern unit is checkpointed (``remat_units``)."""
     n_units, pat, rest = _unit_layout(cfg)
     x = apply_embedding(params.embed, tokens)
     if prefix_embeds is not None:
@@ -138,7 +155,14 @@ def lm_apply(
         next(iter(states["units"].values())), list)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_units = {key: [] for key in params.units}
+    remat = remat_units(mode) and not have_state
     for i in range(n_units):
+        if remat:
+            # the reference's jax.checkpoint(nothing_saveable) of its scan
+            # body: a unit keeps its input and recomputes the rest in backward
+            x, aux = checkpoint(_unit_fn(params, cfg, pat, i, positions, mode),
+                                x, aux, use_reentrant=False)
+            continue
         for j, kind in enumerate(pat):
             key = f"{j}_{kind}"
             st = None

@@ -800,3 +800,101 @@ def test_continuous_batching_on_the_card_matches_isolated(dev):
         want = isolated.generate(p[None], steps=6)
         assert want.device.type == "cuda"
         np.testing.assert_array_equal(done[rid], want.cpu().numpy()[0])
+
+
+# ------------------------------------------------------ the LM training path
+def _train_step(model, cfg, inputs, dev):
+    import copy
+    from repro_torch.models import Mode
+    from repro_torch.train import make_train_step
+    from repro_torch.train.loop import init_train_state
+
+    state = init_train_state(copy.deepcopy(model).to(dev))
+    state, m = make_train_step(
+        cfg, Mode("train", "dense"),
+        lr_kwargs={"peak": 1e-3, "warmup": 0, "total": 10})(
+        state, {k: v.to(dev) for k, v in inputs.items()})
+    return state, {k: float(v) for k, v in m.items()}
+
+
+def _moment_gap(a, b, floor=1e-3):
+    """Each leaf's largest gap relative to max(its largest |value|, floor x
+    the tree's largest): a key bias's true gradient is 0, so its moments
+    are rounding noise (tests/_torch_train.py)."""
+    top = max(float(t.abs().max()) for t in b.values())
+    return max(float((a[k].cpu() - b[k].cpu()).abs().max())
+               / max(float(b[k].abs().max()), floor * top) for k in b)
+
+
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "qwen3-moe-235b-a22b"])
+def test_lm_train_step_on_the_card_follows_the_cpu(dev, name,
+                                                   record_property):
+    """One train step from the same parameters and batch on the card and
+    the CPU: with both in float32 compute, loss, ce and aux within 1e-4
+    and the moments (clipped gradients and their squares) within 1e-4 of
+    each leaf's scale; as configured, within max(2e-2, 1.5 x the CPU's own
+    bfloat16 error against its float32 run). A second run on the card:
+    the same loss, moments within 1e-4."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model_init
+
+    cfg = get_arch(name + "-smoke")
+    model, _ = model_init(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    inputs = _lm_inputs(cfg)
+    card, m_card = _train_step(model, cfg, inputs, dev)
+    cpu, m_cpu = _train_step(model, cfg, inputs, "cpu")
+    again, m_again = _train_step(model, cfg, inputs, dev)
+    # a second run on the card: the backward's scatters (the embedding
+    # gather's, the MoE's dispatch) may sum in another order
+    record_property("rerun_bit_equal", all(
+        torch.equal(again.opt.mu[k], v) for k, v in card.opt.mu.items()))
+    assert m_again["loss"] == m_card["loss"]
+    assert _moment_gap(again.opt.mu, card.opt.mu) <= 1e-4
+    with _Float32Compute():
+        card32, m_card32 = _train_step(model, cfg, inputs, dev)
+        cpu32, m_cpu32 = _train_step(model, cfg, inputs, "cpu")
+    assert next(card.params.parameters()).device.type == "cuda"
+    assert m_card["grad_finite"] and m_card32["grad_finite"]
+    for key in ("loss", "ce", "aux"):
+        assert abs(m_card32[key] - m_cpu32[key]) <= 1e-4, key
+        tol = max(2e-2, 1.5 * abs(m_cpu[key] - m_cpu32[key]))
+        assert abs(m_card[key] - m_cpu[key]) <= tol, key
+    for field in ("mu", "nu"):
+        def get(s):
+            return getattr(s.opt, field)
+        err32 = _moment_gap(get(card32), get(cpu32))
+        record_property(f"{field}_f32_err", err32)
+        assert err32 <= 1e-4, field
+        tol = max(2e-2, 1.5 * _moment_gap(get(cpu), get(cpu32)))
+        assert _moment_gap(get(card), get(cpu)) <= tol, field
+
+
+@pytest.mark.parametrize("shape,ratio,kind", [
+    ((65536,), 0.01, "normal"), ((512, 300), 0.05, "ties"),
+    ((2048, 64), 0.001, "normal")])
+def test_topk_compress_on_the_card_equals_the_cpu(dev, shape, ratio, kind):
+    """The same gradients compressed on the card and on the CPU: the
+    outputs (the masks and the kept values) equal."""
+    from repro_torch.runtime.compression import topk_compress
+
+    rng = _gen(len(shape) + int(1 / ratio))
+    g = (rng.standard_normal(shape) if kind == "normal"
+         else rng.integers(-4, 5, shape)).astype(np.float32)
+    got = topk_compress(torch.from_numpy(g).to(dev), ratio)
+    assert got.device.type == "cuda"
+    want = topk_compress(torch.from_numpy(g), ratio)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_launch_train_smoke_on_the_card(dev, capsys):
+    """``python -m repro_torch.launch.train --smoke``: on the card by
+    default; finite losses."""
+    from repro_torch.launch import train as launch_train
+
+    assert launch_train.main(["--arch", "tinyllama-1.1b", "--smoke",
+                              "--steps", "4"]) == 0
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("[train] step")]
+    losses = [float(line.split("loss=")[1].split()[0]) for line in lines]
+    assert len(losses) == 2 and np.isfinite(losses).all()

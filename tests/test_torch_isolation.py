@@ -46,7 +46,9 @@ def test_importing_the_solver_loads_no_jax():
             "repro_torch.baselines, repro_torch.baselines.hkmeans, "
             "repro_torch.data.pipeline, repro_torch.core.expert_affinity, "
             "repro_torch.configs, repro_torch.models, repro_torch.serve, "
-            "repro_torch.serve.kvcache, repro_torch.launch.serve;"
+            "repro_torch.serve.kvcache, repro_torch.launch.serve, "
+            "repro_torch.train, repro_torch.runtime.compression, "
+            "repro_torch.runtime.fault, repro_torch.launch.train;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "assert not bad, bad")
