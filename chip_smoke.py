@@ -83,20 +83,20 @@ solve_graph the 200,000 blobs' top-k graph: ``EdgeList.from_points(x,
           equal to a numpy Borůvka oracle; ``graph_affinity`` from points
           (one launch); the edges natively on ``dense_topk`` (kk, state
           bytes) against the default build with the same preference; the
-          default solve with ``preseed="graph"`` against
-          ``build="reference"``
+          default solve with ``preseed="graph"`` (one launch), and at
+          20,000 blobs its fused build against ``build="reference"``
 solve_distributed the MR backends and the sharded top-k path on 4 ranks
           that share the card (``sharding.dist.spawn``; gloo, every
           collective through host memory): the Mandrill similarity stack
           built on every rank (bit-equal to this process's S), then
           ``mr1d_stats`` and ``mr2d`` (2 x 2 grid) for 20 sweeps and
-          ``mr1d_transpose`` for 5, against ``dense_parallel`` on the card
+          ``mr1d_transpose`` for 3, against ``dense_parallel`` on the card
           at the same depth (equal cluster counts, at most 0.1 % of points
           with another exemplar); the blobs' sharded build (edge sets bit
           for bit the fused build's), the default ``solve(x)`` in the
-          group at 5 sweeps (routed to ``dense_topk`` with the sharded
+          group at 3 sweeps (routed to ``dense_topk`` with the sharded
           build and sweep; decisions and trace equal to the one-process
-          default solve at 5 sweeps), and the sharded sweeps with the
+          default solve at 3 sweeps), and the sharded sweeps with the
           allgather exchange under the converged stop (6 sweeps) and the
           psum exchange under the fixed one (30) (decisions and traces
           equal to ``run_topk``'s on the fused lists); each of the two
@@ -143,8 +143,9 @@ solve_checkpoint the default ``dense_topk`` solve of the blobs under both
           path that builds, each read around its own run
 serve     the clustering service (``repro_torch.serve.cluster``) on the
           card: ``bench_serve.py``'s FULL load sweep (buckets 128, 256,
-          512 x 2, batch 8, 2 levels, <= 100 sweeps; 120 Poisson requests
-          at 5, 20, 50 and 100 rps, half on one stream): offered and
+          512 x 2, batch 8, 2 levels, <= 100 sweeps; 40 Poisson requests,
+          not its 120, at 5, 20, 50 and 100 rps, half on one stream):
+          offered and
           achieved rps, p50/p95/p99, the first request's latency, micro-
           batches, riders a batch, fast-path share, no cache miss after
           warmup, no kernel launch on the batched path; where a batch's
@@ -187,9 +188,9 @@ lm_train  LM training (``repro_torch.train``, no kernel of its own): (a)
           tinyllama-1.1b at full width and depth (random parameters from a
           generator seeded 0) trained by ``make_train_step`` (AdamW, the
           warmup-cosine schedule at ``launch/train.py``'s defaults, each
-          layer recomputed in backward) for 20 steps of 8 x 512 tokens of
+          layer recomputed in backward) for 12 steps of 8 x 512 tokens of
           ``synthetic_token_stream(seed=0)``: ms a step (host clock around
-          each synchronised step, steps 2-20), tokens/s, peak memory;
+          each synchronised step, steps 2-12), tokens/s, peak memory;
           loss, ce and the gradients finite at every step, the mean ce of
           the last 5 steps below the first step's, and step 1 run twice
           from the same state (loss and moments within 1e-4; what differs
@@ -208,6 +209,27 @@ lm_train  LM training (``repro_torch.train``, no kernel of its own): (a)
           10 steps checkpointing every 5 and a second of 15 on the same
           directory, which must restore step 10; the five kernels'
           launches over the phase (0)
+lm_elastic  elastic resharding and sharded training (no kernel of its
+          own), 4 ranks sharing the card over gloo: (a) qwen3-moe-235b-a22b's
+          MoE layer at full width (d_model 4,096, 128 experts, d_ff 1,536,
+          top-8; 2.42 B parameters from a generator seeded 23) on 4 x 512
+          tokens, first in one process (forward and backward at
+          ``capacity_factor=8.0``, float32, TF32 off), then on a 2 x 2
+          (data, model) mesh, expert-parallel, each rank drawing the layer
+          and keeping its 64 experts: routing equal, and y, aux, the x and
+          router gradients and the expert gradients (a linear probe of
+          every expert's, and the first and last expert of each rank
+          whole; the data ranks' mean) each within 2e-5 of its own max
+          |value| (the scales printed beside the errors);
+          the choices dropped at 1.25 by both; (b) tinyllama-1.1b at full
+          width cut to 2 layers trained 4 steps of 8 x 512 on 2 x 2, saved
+          (the blocks gathered, rank 0 writing), 4 steps more; then
+          restored onto 1 x 2 (half the ranks lost) for the same 4 steps:
+          losses within 1e-3 of the uninterrupted run; ms a step, bytes
+          sent, peak memory a rank, save and restore ms; (c) beside them,
+          on three eighths of the host's cores, ``python -m
+          repro_torch.launch.dryrun --all --mesh both`` (64 cells, exit 0);
+          the five kernels' launches over the phase (0)
 profile   only with ``--profile``: ``torch.profiler`` traces of a 10-sweep
           ``dense_fused`` solve, a 10-sweep ``dense_topk`` solve, the
           two-stage build of the 200,000 blobs (neg_euclidean) and one
@@ -215,12 +237,14 @@ profile   only with ``--profile``: ``torch.profiler`` traces of a 10-sweep
           ``--only lm_train``), device time by kernel, device events and
           the device's idle share
 
-Then the card's name and power limit as nvidia-smi prints them, the
-kernels line ``{"kernels": [...]}`` (``lm_serve_launches`` and
-``lm_train_launches``: each kernel's launches over the lm_serve and
-lm_train phases), and last ``{"ok": true, "device": {...}}``.
-``--only lm_serve`` or ``--only lm_train`` runs the env phase and that
-phase alone and stops without the last line. Any failed check exits
+After each phase a line ``{"phase": "clock", "after": ..., "t_s": ...}``
+gives the seconds since the script's start. Then the card's name and
+power limit as nvidia-smi prints them, the
+kernels line ``{"kernels": [...]}`` (``lm_serve_launches``,
+``lm_train_launches`` and ``lm_elastic_launches``: each kernel's launches
+over the three LM phases), and last ``{"ok": true, "device": {...}}``.
+``--only lm_serve``, ``lm_train`` or ``lm_elastic`` runs the env phase
+and that phase alone and stops without the last line. Any failed check exits
 non-zero with the traceback and without the last line; so does a machine
 without a CUDA device, or a directory without the repository's ``src/``.
 """
@@ -1007,7 +1031,8 @@ def run_solve_graph(blobs, topk_default) -> dict:
     (against the port's own CPU run and, at 20,000 blobs, the numpy
     oracle), ``graph_affinity`` from points, the edges on ``dense_topk``
     (against the default solve with the same preference), and the default
-    top-k solve with ``preseed="graph"`` (against ``build="reference"``).
+    top-k solve with ``preseed="graph"`` (against ``build="reference"``
+    at 20,000 blobs).
     Returns the ``topk_build`` launches of each path that builds, and the
     card's one-process round loop on the blobs' layout (which it writes to
     GRAPH_LAYOUT for solve_distributed)."""
@@ -1157,32 +1182,35 @@ def run_solve_graph(blobs, topk_default) -> dict:
           "preference gave other decisions")
     del nat, same_pref, el
 
-    times = {}
-    out = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    pre = solve(blobs, preseed="graph", device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, reads = launch_counts(), affinity.host_reads
+    paths["dense_topk preseed"] = launches["topk_build"]
+    # the fused and reference builds under the preseed, at the 20,000
+    # blobs (a depth cut: at 200,000 each run's host graph work took ~30 s)
+    times, out = {}, {}
     for build in ("auto", "reference"):
-        torch.cuda.synchronize()
-        reset_launch_counts()
         t0 = time.perf_counter()
-        out[build] = solve(blobs, preseed="graph", build=build,
+        out[build] = solve(small, preseed="graph", build=build,
                            device=DEVICE)
         torch.cuda.synchronize()
         times[build] = time.perf_counter() - t0
-        if build == "auto":
-            launches = launch_counts()
-            reads = affinity.host_reads
-    paths["dense_topk preseed"] = launches["topk_build"]
     same = (np.array_equal(out["auto"].exemplars, out["reference"].exemplars)
             and np.array_equal(out["auto"].trace, out["reference"].trace))
-    emit({"phase": "solve_graph", "backend": out["auto"].backend,
-          "preseed": "graph", "wall_s": times["auto"],
-          "reference_build_wall_s": times["reference"],
-          "preseed_host_reads": reads,
-          "n_clusters": out["auto"].n_clusters.tolist(),
+    emit({"phase": "solve_graph", "backend": pre.backend,
+          "preseed": "graph", "wall_s": wall, "preseed_host_reads": reads,
+          "n_clusters": pre.n_clusters.tolist(),
           "plain_n_clusters": topk_default.n_clusters.tolist(),
-          "launches": launches, "decisions_equal_reference_build": same})
-    check(out["auto"].backend == "dense_topk"
-          and launches["topk_build"] == 1,
-          f"preseed solve: {out['auto'].backend}, launches {launches}")
+          "launches": launches, "compare_n": N_ORACLE,
+          "compare_wall_s": times,
+          "compare_n_clusters": out["auto"].n_clusters.tolist(),
+          "decisions_equal_reference_build": same})
+    check(pre.backend == "dense_topk" and launches["topk_build"] == 1,
+          f"preseed solve: {pre.backend}, launches {launches}")
     check(same, "preseed: fused and reference builds gave other decisions")
     return paths, one_process
 
@@ -1356,7 +1384,7 @@ def run_solve_checkpoint(blobs, coarsen_res) -> dict:
 SERVE_BUCKETS = [(128, 2), (256, 2), (512, 2)]
 SERVE_BATCH = 8
 SERVE_LOADS = [5.0, 20.0, 50.0, 100.0]
-SERVE_REQUESTS = 120
+SERVE_REQUESTS = 40            # benchmarks/bench_serve.py's FULL: 120
 SERVE_STREAM_FRAC = 0.5
 CEILING = (4096, 2, 8)        # the largest bucket max_bucket_n lets batch
 CEILING_REQUESTS = 16
@@ -2069,11 +2097,11 @@ DIST_WORLD = 4           # ranks on the one card (gloo, host copies)
 # sweeps of the group's runs, each compared at the same depth: the MR
 # backends on the Mandrill stack (mr1d_transpose moves ~0.68 GB a rank a
 # sweep through host memory)
-MR_SWEEPS, TRANSPOSE_SWEEPS = 20, 5
+MR_SWEEPS, TRANSPOSE_SWEEPS = 20, 3
 # the default solve in the group: its sharded allgather sweeps gather
-# 0.78 GB through host memory each, so it runs 5 sweeps, and so does its
+# 0.78 GB through host memory each, so it runs 3 sweeps, and so does its
 # one-process comparison
-DIST_SOLVE_SWEEPS = 5
+DIST_SOLVE_SWEEPS = 3
 # the blobs' sharded sweeps: (name, stop, exchange, sweeps, checkpoint
 # every); the allgather exchange is held at 6 sweeps (the blobs do not
 # converge in 50, and each sweep gathers 0.78 GB through host memory), the
@@ -3245,7 +3273,7 @@ def run_lm_serve(smi: str) -> dict:
 
 
 # --------------------------------------------------------------- lm_train
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 12
 TRAIN_LR = {"peak": 3e-3, "warmup": max(TRAIN_STEPS // 10, 1),
             "total": TRAIN_STEPS}          # launch/train.py's defaults
 TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 128    # the 2-layer step on the CPU
@@ -3579,11 +3607,428 @@ def run_lm_train(smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- lm_elastic
+ELASTIC_MOE_ARCH = "qwen3-moe-235b-a22b"   # d_model 4,096, 128 experts
+ELASTIC_MOE_TOKENS = (4, 512)              # the global batch of the layer
+ELASTIC_MOE_SEED = 23
+# y, aux and the gradients: float32, TF32 off; max |error| over the
+# compared quantity's own max |value| (floored at ELASTIC_MOE_FLOOR, so a
+# quantity that is all zeros is held to an absolute bar)
+ELASTIC_MOE_TOL = 2e-5
+ELASTIC_MOE_FLOOR = 1e-30
+ELASTIC_PROBE_EXPERTS = 2                  # whole gradients a model rank
+ELASTIC_BATCH, ELASTIC_SEQ, ELASTIC_STEPS = 8, 512, 4
+ELASTIC_LR = {"peak": 1e-3, "warmup": 2, "total": 20}
+ELASTIC_LOSS_TOL = 1e-3   # tests/helpers/elastic_check.py's bar
+ELASTIC_DIR = ROOT / "build" / "chip_smoke_elastic"
+
+
+def moe_full_width():
+    """qwen3-moe-235b-a22b's MoE layer: (d_model, d_ff, experts, top_k)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(ELASTIC_MOE_ARCH)
+    return cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k
+
+
+def moe_draws(model_axis=None):
+    """The layer from a generator on the card seeded ELASTIC_MOE_SEED, in
+    ``MoE(Init(...))``'s order of draws; with ``model_axis`` each expert
+    weight is cut to that rank's experts right after its draw (so a rank
+    never holds the whole layer)."""
+    import math as _math
+
+    from repro_torch.models.layers.common import Init
+    from repro_torch.models.layers.moe import MoE
+    d, f, e, _ = moe_full_width()
+    moe = MoE(Init(None, device="meta"), d, f, e)
+    gen = torch.Generator(DEVICE).manual_seed(ELASTIC_MOE_SEED)
+    s_in, s_out = 1.0 / _math.sqrt(d), 1.0 / _math.sqrt(f)
+    for name, shape, scale in (("router", (d, e), s_in),
+                               ("gate", (e, d, f), s_in),
+                               ("up", (e, d, f), s_in),
+                               ("down", (e, f, d), s_out)):
+        w = torch.randn(shape, generator=gen, device=DEVICE) * scale
+        if model_axis is not None and name != "router":
+            n = e // model_axis.size
+            w = w.narrow(0, model_axis.index * n, n).clone()
+        moe.add(name, torch.nn.Parameter(w), moe.specs[name])
+    return moe
+
+
+def moe_inputs():
+    rng = np.random.default_rng(ELASTIC_MOE_SEED)
+    shape = (*ELASTIC_MOE_TOKENS, moe_full_width()[0])
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+def moe_step(moe, x, w, cf: float):
+    """y, aux, top-k choices and the gradients of mean(y . w) + aux, timed
+    (host clock around the synchronised forward and backward)."""
+    from repro_torch.models.layers.moe import moe_apply, ordered_top_k
+    x = x.clone().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = moe_apply(moe, x, top_k=moe_full_width()[3], capacity_factor=cf)
+    ((out.y * w).sum() / (x.shape[0] * x.shape[1]) + out.aux_loss).backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    top_i = ordered_top_k(out.router_probs.detach(), moe_full_width()[3])[1]
+    return out.y.detach(), out.aux_loss.item(), top_i, x.grad, ms
+
+
+def moe_probe(moe, e_lo: int, n: int) -> dict:
+    """Linear probes of the expert gradients (u^T g v for every expert, u
+    and v fixed draws) and the whole gradients of the first and last of
+    the experts [e_lo, e_lo + n): what the ranks' sums are held to."""
+    d, f, _, _ = moe_full_width()
+    gen = torch.Generator(DEVICE).manual_seed(1)
+    u = torch.randn(d, generator=gen, device=DEVICE)
+    v = torch.randn(f, generator=gen, device=DEVICE)
+    out = {}
+    for name in ("gate", "up", "down"):
+        g = getattr(moe, name).grad
+        g = g if g.shape[0] == n else g.narrow(0, e_lo, n)
+        a, b = (u, v) if name != "down" else (v, u)
+        out[f"{name}_probe"] = torch.einsum("edf,d,f->e", g, a, b)
+        out[f"{name}_ends"] = torch.stack([g[0], g[-1]])
+    out["router"] = moe.router.grad
+    return out
+
+
+def drops(moe, x, cf: float, e_lo: int, e_loc: int) -> int:
+    """The choices for the experts [e_lo, e_lo + e_loc) that the capacity
+    drops at ``cf`` (the rank's tokens count)."""
+    from repro_torch.models.layers.moe import _route_and_dispatch, capacity
+    d, _, e, k = moe_full_width()
+    t = x.shape[0] * x.shape[1]
+    cap = capacity(t, k, e, cf)
+    with torch.no_grad():
+        _, (inv, _, _, flat_e) = _route_and_dispatch(
+            x.reshape(t, d), moe.router, k, e_lo, e_loc, cap)
+    mine = (flat_e >= e_lo) & (flat_e < e_lo + e_loc)
+    return int((mine & (inv == e_loc * cap)).sum())
+
+
+def elastic_rank(ref_path: str, x_np, w_np, ckdir: str) -> dict:
+    """One of 4 ranks sharing the card: (a) the full-width MoE layer on a
+    2 x 2 (data, model) mesh against the one-process layer's results in
+    ``ref_path``; (b) tinyllama-1.1b (2 layers, full width) trained on the
+    2 x 2 mesh, saved, restored onto a 1 x 2 mesh."""
+    import dataclasses as _dc
+
+    import torch.distributed as tdist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import train_state_to_numpy
+    from repro_torch.data.pipeline import synthetic_token_stream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Mode, model_init
+    from repro_torch.models.layers.common import tree_map
+    from repro_torch.runtime.elastic import gather_state, reshard_state
+    from repro_torch.sharding import dist
+    from repro_torch.sharding.partitioning import set_mesh
+    from repro_torch.train.loop import (
+        init_train_state, make_train_step, train_state_specs,
+    )
+
+    entered = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_launch_counts()
+    t_a = time.perf_counter()
+    mesh = make_mesh((2, 2), ("data", "model"))
+    mesh2 = make_mesh((1, 2), ("data", "model"))   # every rank builds it
+    dax, max_ = mesh.axis("data"), mesh.axis("model")
+    out = {"rank": dist.rank(), "coords": (dax.index, max_.index),
+           "entered": entered}
+
+    # (a) the MoE layer at full width, expert-parallel
+    ref = torch.load(ref_path, map_location=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    moe = moe_draws(max_)
+    e = moe_full_width()[2]
+    e_loc = e // max_.size
+    e_lo = max_.index * e_loc
+    rows = slice(dax.index * 2, dax.index * 2 + 2)
+    x = torch.from_numpy(x_np[rows]).to(DEVICE)
+    w = torch.from_numpy(w_np[rows]).to(DEVICE)
+    sent = mesh.traffic.bytes_sent
+    with set_mesh(mesh):
+        y, aux, top_i, gx, ms = moe_step(moe, x, w, 8.0)
+        probe = moe_probe(moe, e_lo, e_loc)
+        # the mesh step's reduction: the data ranks' mean
+        summed = {k: dist.psum(v, dax) / dax.size for k, v in probe.items()}
+        dropped_125 = dist.psum(torch.tensor(drops(moe, x, 1.25, e_lo,
+                                                   e_loc)), dax)
+    t = rows.stop - rows.start
+
+    scales = {}
+
+    def err(key: str, got, want) -> float:
+        """max |got - want| over max |want| (floored); the scale is kept
+        in ``scales``."""
+        want = torch.as_tensor(want, device=DEVICE)
+        scales[key] = float(want.abs().max())
+        return float((torch.as_tensor(got, device=DEVICE) - want).abs().max()
+                     / max(ELASTIC_MOE_FLOOR, scales[key]))
+    errs = {"y": err("y", y, ref["y"][rows]),
+            "aux": err("aux", aux, ref["aux"]),
+            "x_grad": err("x_grad", gx / dax.size, ref["x_grad"][rows]),
+            "router_grad": err("router_grad", summed["router"],
+                               ref["router"])}
+    for name in ("gate", "up", "down"):
+        errs[f"{name}_probe"] = err(f"{name}_probe",
+                                    summed[f"{name}_probe"],
+                                    ref[f"{name}_probe"][e_lo:e_lo + e_loc])
+        errs[f"{name}_ends"] = err(f"{name}_ends", summed[f"{name}_ends"],
+                                   torch.stack(
+            [ref[f"{name}_first"][max_.index],
+             ref[f"{name}_last"][max_.index]]))
+    out["moe"] = {
+        "experts_held": e_loc, "tokens": t * ELASTIC_MOE_TOKENS[1],
+        "ms_fwd_bwd": ms, "errors": errs, "scales": scales,
+        "routing_equal": bool(torch.equal(
+            top_i.cpu(), ref["top_i"].reshape(
+                ELASTIC_MOE_TOKENS[0], ELASTIC_MOE_TOKENS[1], -1)[rows]
+            .reshape(top_i.shape).cpu())),
+        "dropped_at_1.25": int(dropped_125),
+        "bytes_sent": mesh.traffic.bytes_sent - sent,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del moe, probe, summed, ref, gx, y
+    torch.cuda.empty_cache()
+
+    out["moe"]["rank_s"] = time.perf_counter() - t_a
+
+    # (b) elastic training: tinyllama at full width, 2 layers
+    t_b = time.perf_counter()
+    cfg = _dc.replace(get_arch(LM_ARCH), n_layers=2)
+    model, specs = model_init(torch.Generator(DEVICE).manual_seed(0), cfg,
+                              device=DEVICE)
+    state = init_train_state(model)
+    state_specs = train_state_specs(specs)
+    like = train_state_to_numpy(state)
+    del model, state
+    stream = synthetic_token_stream(cfg.vocab, ELASTIC_BATCH, ELASTIC_SEQ,
+                                    seed=0)
+    batches = [{"tokens": torch.as_tensor(next(stream), device=DEVICE)}
+               for _ in range(2 * ELASTIC_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+
+    def train(st, step, part):
+        losses, times = [], []
+        for b in part:
+            (st, m), dt = timed_sync(lambda: step(st, b))
+            losses.append(float(m["loss"]))
+            times.append(dt * 1e3)
+        return st, losses, times
+
+    sent = mesh.traffic.bytes_sent
+    st = reshard_state(like, state_specs, mesh, device=DEVICE)
+    step = make_train_step(cfg, Mode("train", "dense"),
+                           lr_kwargs=ELASTIC_LR, mesh=mesh)
+    _, setup_s = timed_sync(lambda: step.setup(st))
+    st, first, t_first = train(st, step, batches[:ELASTIC_STEPS])
+    (full, save_ms) = timed_sync(lambda: gather_state(st, state_specs, mesh))
+    t0 = time.perf_counter()
+    if dist.rank() == 0:
+        CheckpointManager(ckdir, async_save=False).save(
+            ELASTIC_STEPS, tree_map(lambda t: t.cpu().numpy(), full))
+    save_ms = save_ms * 1e3 + (time.perf_counter() - t0) * 1e3
+    del full
+    tdist.barrier()
+    st, cont, t_cont = train(st, step, batches[ELASTIC_STEPS:])
+    out["train_2x2"] = {
+        "losses": first + cont, "ms_per_step": t_first[1:] + t_cont,
+        "setup_ms": setup_s * 1e3, "first_step_ms": t_first[0],
+        "save_ms": save_ms,
+        "bytes_sent": mesh.traffic.bytes_sent - sent,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del st, step
+    torch.cuda.empty_cache()
+    if mesh2.member:
+        torch.cuda.reset_peak_memory_stats()
+        sent = mesh2.traffic.bytes_sent
+        t0 = time.perf_counter()
+        step_no, restored = CheckpointManager(ckdir).restore_latest(like)
+        st2 = reshard_state(restored, state_specs, mesh2, device=DEVICE)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        step2 = make_train_step(cfg, Mode("train", "dense"),
+                                lr_kwargs=ELASTIC_LR, mesh=mesh2)
+        st2, again, t_again = train(st2, step2, batches[ELASTIC_STEPS:])
+        out["train_1x2"] = {
+            "restored_step": step_no, "restore_ms": restore_ms,
+            "losses": again, "ms_per_step": t_again,
+            "bytes_sent": mesh2.traffic.bytes_sent - sent,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del st2, step2
+    tdist.barrier()
+    out["train_2x2"]["rank_s"] = time.perf_counter() - t_b
+    out["launches"] = launch_counts()
+    out["left"] = time.time()
+    return out
+
+
+def run_lm_elastic(smi: str) -> dict:
+    """(c) the dry run (``python -m repro_torch.launch.dryrun --all --mesh
+    both``) as a process beside (a) the full-width qwen3 MoE layer on a
+    2 x 2 mesh of 4 ranks sharing the card, against the layer in one
+    process (run first), and (b) elastic training of tinyllama-1.1b.
+    Returns the five kernels' launches over the phase (all 0)."""
+    import shutil
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.sharding import dist
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    ELASTIC_DIR.mkdir(parents=True, exist_ok=True)
+    dry_out = ELASTIC_DIR / "dryrun.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t_dry = time.perf_counter()
+    dry_log = open(ELASTIC_DIR / "dryrun.log", "w")
+    # three of the host's eight cores for the dry run's pool (≈ 150 s of
+    # counting in all), the rest for the ranks' host-staged collectives
+    cores = sorted(os.sched_getaffinity(0))
+    dry_cores = cores[:max(1, 3 * len(cores) // 8)]
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", "both", "--out", str(dry_out)], env=env,
+        stdout=dry_log, stderr=subprocess.STDOUT,
+        preexec_fn=lambda: os.sched_setaffinity(0, dry_cores))
+    try:
+        # (a), one process first: the whole layer and its gradients
+        x_np, w_np = moe_inputs()
+        moe = moe_draws()
+        n_params = sum(p.numel() for p in moe.parameters())
+        x, w = (torch.from_numpy(a).to(DEVICE) for a in (x_np, w_np))
+        torch.cuda.reset_peak_memory_stats()
+        moe_step(moe, x, w, 8.0)                   # warm-up
+        for p in moe.parameters():
+            p.grad = None
+        y, aux, top_i, gx, ms = moe_step(moe, x, w, 8.0)
+        e = moe_full_width()[2]
+        ref = {"y": y, "aux": torch.tensor(aux), "top_i": top_i,
+               "x_grad": gx}
+        for half in range(2):
+            probe = moe_probe(moe, half * e // 2, e // 2)
+            for name in ("gate", "up", "down"):
+                ref.setdefault(f"{name}_probe", []).append(
+                    probe[f"{name}_probe"])
+                ref.setdefault(f"{name}_first", []).append(
+                    probe[f"{name}_ends"][0])
+                ref.setdefault(f"{name}_last", []).append(
+                    probe[f"{name}_ends"][1])
+            ref["router"] = probe["router"]
+        for name in ("gate", "up", "down"):
+            ref[f"{name}_probe"] = torch.cat(ref[f"{name}_probe"])
+            ref[f"{name}_first"] = torch.stack(ref[f"{name}_first"])
+            ref[f"{name}_last"] = torch.stack(ref[f"{name}_last"])
+        dense_drops = drops(moe, x, 1.25, 0, e)
+        one = {"ms_fwd_bwd": ms, "params": n_params,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "dropped_at_1.25": dense_drops}
+        ref_path = ELASTIC_DIR / "moe_ref.pt"
+        torch.save({k: v.cpu() for k, v in ref.items()}, ref_path)
+        del moe, ref, probe, y, gx, x, w
+        torch.cuda.empty_cache()
+
+        ckdir = ELASTIC_DIR / "ckpt"
+        shutil.rmtree(ckdir, ignore_errors=True)
+        one["phase_s_before_group"] = time.perf_counter() - t_phase
+        t0, spawned = time.perf_counter(), time.time()
+        ranks = dist.spawn(elastic_rank, 4, device=DEVICE,
+                           args=(str(ref_path), x_np, w_np, str(ckdir)))
+        group_s = time.perf_counter() - t0
+        # the group's start (spawn to the last rank's entry) and end (the
+        # first rank's return to the group's end), host clocks
+        group_start_s = max(r["entered"] for r in ranks) - spawned
+        group_end_s = spawned + group_s - min(r["left"] for r in ranks)
+    except BaseException:
+        dry.kill()
+        dry.wait()
+        dry_log.close()
+        raise
+    finally:
+        shutil.rmtree(ELASTIC_DIR / "ckpt", ignore_errors=True)
+    d, f, e, k = moe_full_width()
+    moe_rows = [r["moe"] | {"coords": r["coords"]} for r in ranks]
+    worst = {key: max(r["errors"][key] for r in moe_rows)
+             for key in moe_rows[0]["errors"]}
+    least_scale = {key: min(r["scales"][key] for r in moe_rows)
+                   for key in moe_rows[0]["scales"]}
+    emit({"phase": "lm_elastic", "step": "moe layer, full width",
+          "arch": ELASTIC_MOE_ARCH, "card": smi, "d_model": d, "d_ff": f,
+          "experts": e, "top_k": k, "tokens": ELASTIC_MOE_TOKENS,
+          "mesh": "2x2 (data, model), expert-parallel",
+          "one_process": one, "ranks": moe_rows, "max_errors": worst,
+          "least_scales": least_scale, "tolerance": ELASTIC_MOE_TOL,
+          "group_s": group_s, "group_start_s": group_start_s, "group_end_s": group_end_s})
+    check(all(r["routing_equal"] for r in moe_rows),
+          f"lm_elastic: the sharded routing differs from one process")
+    check(all(v <= ELASTIC_MOE_TOL for v in worst.values()),
+          f"lm_elastic: the sharded MoE is off the one-process layer: "
+          f"{worst}")
+    two = [r["train_2x2"] for r in ranks]
+    one_two = [r["train_1x2"] for r in ranks if "train_1x2" in r]
+    gap = max(abs(a - b) for r in one_two for a, b in zip(
+        r["losses"], two[0]["losses"][ELASTIC_STEPS:]))
+    emit({"phase": "lm_elastic", "step": "elastic training",
+          "arch": LM_ARCH, "layers": 2, "card": smi,
+          "batch": ELASTIC_BATCH, "seq": ELASTIC_SEQ,
+          "mesh_2x2": two, "mesh_1x2_restored": one_two,
+          "restart_loss_gap": gap, "tolerance": ELASTIC_LOSS_TOL})
+    check(all(r["losses"] == two[0]["losses"] for r in two),
+          "lm_elastic: the 2 x 2 ranks disagree on the losses")
+    check(len(one_two) == 2 and all(r["restored_step"] == ELASTIC_STEPS
+                                    for r in one_two)
+          and gap < ELASTIC_LOSS_TOL and np.isfinite(two[0]["losses"]).all(),
+          f"lm_elastic: the restart is off the uninterrupted run: {gap}")
+
+    # (c) the dry run
+    try:
+        dry.wait(timeout=600)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        dry_log.close()
+    waited_s = time.perf_counter() - t_dry
+    text = (ELASTIC_DIR / "dryrun.log").read_text()
+    summary = [line for line in text.splitlines()
+               if line.startswith("[dryrun]")]
+    res = json.loads(dry_out.read_text()) if dry_out.exists() else {}
+    cells = len(res.get("results", []))
+    emit({"phase": "lm_elastic", "step": "dry run", "rc": dry.returncode,
+          "cells": cells, "failures": len(res.get("failures", [])),
+          "cores": len(dry_cores),
+          "seconds": float(summary[-1].rsplit(",", 1)[1].split()[0])
+          if summary else None,
+          "cell_s": {f"{r['arch']} {r['shape']} {r['mesh']}": r["count_s"]
+                     for r in res.get("results", [])},
+          "phase_s_at_wait": waited_s, "summary": summary})
+    check(dry.returncode == 0 and cells == 64,
+          f"lm_elastic: the dry run failed: {text[-2000:]}")
+    launches = launch_counts()
+    for r in ranks:
+        for name, n in r["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    emit({"phase": "lm_elastic", "step": "done", "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    check(not any(launches.values()),
+          f"lm_elastic: a hand-written kernel ran on the path: {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace a short fused solve with torch.profiler")
-    ap.add_argument("--only", choices=["lm_serve", "lm_train"],
+    ap.add_argument("--only", choices=["lm_serve", "lm_train",
+                                       "lm_elastic"],
                     help="run the env phase and this one LM phase (they "
                     "need no kernel built), print its launches, and stop "
                     "without the last line")
@@ -3607,13 +4052,21 @@ def main() -> int:
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
     if args.only:
-        run = {"lm_serve": run_lm_serve, "lm_train": run_lm_train}
+        run = {"lm_serve": run_lm_serve, "lm_train": run_lm_train,
+               "lm_elastic": run_lm_elastic}
         launches = run[args.only](smi)
         if args.profile and args.only == "lm_train":
             profile_train()
         print(smi, flush=True)
         emit({"only": args.only, "launches": launches})
         return 0
+
+    t_start = time.perf_counter()
+
+    def clock(after: str) -> None:
+        """Seconds since the script's start, after each phase."""
+        emit({"phase": "clock", "after": after,
+              "t_s": time.perf_counter() - t_start})
 
     t0 = time.perf_counter()
     _build.lib()
@@ -3626,33 +4079,50 @@ def main() -> int:
     x = torch.from_numpy(pixels).to(DEVICE)
     summary = run_kernels(x)
     del x
+    clock("kernels")
     summary["topk_build"] = run_topk_kernel(
         blobs, image_to_points(mandrill_like_image(512, 512)))
+    clock("topk")
     launches = run_solve(pixels)                    # dense_fused path
+    clock("solve")
     topk_launches, topk_res = run_solve_topk(blobs)
     launches["topk_build"] = topk_launches["topk_build"]
+    clock("solve_topk")
     summary["flash_attention"] = run_attention()
     launches["flash_attention"] = summary["flash_attention"].pop("launches")
     emit({"phase": "launches", "launches": launches})
+    clock("attention")
     run_solve_twostage(blobs,
                        image_to_points(mandrill_like_image(512, 512)))
+    clock("solve_twostage")
     run_solve_streaming(blobs)
+    clock("solve_streaming")
     coarsen_res = run_solve_coarsen()
+    clock("solve_coarsen")
     paths = {"dense_topk (default solve)": launches["topk_build"]}
     graph_paths, graph_one = run_solve_graph(blobs, topk_res)
     paths.update(graph_paths)
+    clock("solve_graph")
     from repro_torch.baselines import kmeans
     # the port's default initial centers for seed 0 (no step taken)
     init_centers = kmeans(torch.from_numpy(blobs).to(DEVICE), K_MEANS,
                           iterations=0, seed=0).centers.cpu().numpy()
     similarity_paths = run_solve_distributed(pixels, blobs, graph_one,
                                              init_centers)
+    clock("solve_distributed")
     del topk_res
     paths.update(run_baselines(blobs, truth, init_centers))
+    clock("baselines")
     paths.update(run_solve_checkpoint(blobs, coarsen_res))
+    clock("solve_checkpoint")
     paths.update(run_serve(smi))
+    clock("serve")
     lm_launches = run_lm_serve(smi)
+    clock("lm_serve")
     train_launches = run_lm_train(smi)
+    clock("lm_train")
+    elastic_launches = run_lm_elastic(smi)
+    clock("lm_elastic")
     emit({"phase": "launches", "topk_build_by_path": paths})
     check(all(paths.values()), f"a path launched no topk_build: {paths}")
     if args.profile:
@@ -3671,7 +4141,8 @@ def main() -> int:
             "replaces": f"src/repro/kernels/{fn_line}",
             "launches": launches[name], **summary[name],
             "lm_serve_launches": lm_launches[name],
-            "lm_train_launches": train_launches[name]})
+            "lm_train_launches": train_launches[name],
+            "lm_elastic_launches": elastic_launches[name]})
         if name == "topk_build":
             kernels[-1]["launches_by_path"] = paths
         if name == "similarity":

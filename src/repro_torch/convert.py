@@ -37,7 +37,7 @@ from repro_torch.core.hap import HAPState
 from repro_torch.models import model_init
 from repro_torch.models.encdec import EncDecState
 from repro_torch.models.layers.attention import KVCache
-from repro_torch.models.layers.common import tree_map
+from repro_torch.models.layers.common import stacked_tree, tree_map
 from repro_torch.models.layers.rglru import RGLRUState
 from repro_torch.models.layers.xlstm import MLSTMState, SLSTMState
 from repro_torch.solver import checkpointing
@@ -114,15 +114,8 @@ def lm_params_to_numpy(model: nn.Module) -> dict:
 def _module_tree(module: nn.Module, values: dict, prefix: str) -> dict:
     """The reference's tree of ``module``'s parameters, each leaf taken
     from ``values`` by its full parameter name, as numpy."""
-    if isinstance(module, nn.ModuleList):
-        layers = [_module_tree(m, values, f"{prefix}{i}.")
-                  for i, m in enumerate(module)]
-        return tree_map(lambda *xs: np.stack(xs), *layers)
-    out = {name: values[prefix + name].detach().cpu().numpy()
-           for name, _ in module.named_parameters(recurse=False)}
-    for name, child in module.named_children():
-        out[name] = _module_tree(child, values, f"{prefix}{name}.")
-    return out
+    return tree_map(lambda t: t.detach().cpu().numpy(),
+                    stacked_tree(module, values, prefix))
 
 
 # ---------------------------------------------------------- LM training

@@ -1,6 +1,6 @@
 """Worker meshes over the ranks of a ``torch.distributed`` group (port of
-``make_worker_mesh`` in ``repro/launch/mesh.py`` and of the
-``make_mesh`` the engine builds its 2-D mesh with).
+``repro/launch/mesh.py`` and of the ``make_mesh`` the engine builds its
+2-D mesh with).
 
 A mesh lays the first ``prod(shape)`` ranks of the default group out
 row-major over named axes, as ``jax.make_mesh`` lays out devices. For each
@@ -10,8 +10,6 @@ the ranks that share every other coordinate, which the collectives of
 call: every rank of the default group builds the same meshes in the same
 order, members or not. Without a running group a mesh has one rank and
 its collectives are identities.
-
-``make_production_mesh`` belongs to the LM scaffolding and comes with it.
 """
 from __future__ import annotations
 
@@ -45,6 +43,10 @@ class WorkerMesh:
     @property
     def size(self) -> int:
         return math.prod(self.sizes)
+
+    @property
+    def empty(self) -> bool:
+        return not self.axis_names
 
     @property
     def member(self) -> bool:
@@ -122,6 +124,23 @@ def _coords(r: int, shape: tuple) -> tuple:
         r, c = divmod(r, s)
         out.append(c)
     return tuple(reversed(out))
+
+
+def production_mesh_shape(multi_pod: bool = False) -> tuple[tuple, tuple]:
+    """(sizes, axis names) of the production mesh: 16 x 16 = 256 chips a
+    pod, ("data", "model"); the multi-pod mesh adds a leading 2-pod axis
+    (512 chips)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> WorkerMesh:
+    """The production mesh over the first 256 (or 512) ranks of the group;
+    raises when the group has fewer, as the reference does without enough
+    devices. The dry run lays state out on
+    ``make_abstract_mesh(*production_mesh_shape(...))`` instead."""
+    return make_mesh(*production_mesh_shape(multi_pod))
 
 
 def make_worker_mesh(workers: Optional[int] = None,

@@ -20,23 +20,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding.partitioning import P
 from repro_torch.solver.engine import resolve_device
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
-
-
-class P(tuple):
-    """Logical sharding of one leaf: per dim the logical mesh axis it
-    shards over (``"model"``, ``"data"``, a tuple of axes) or None — the
-    reference's ``PartitionSpec`` as a plain tuple. Nothing on one device
-    reads it; it is kept for the sharded path (ROADMAP A.9.4)."""
-
-    def __new__(cls, *axes):
-        return super().__new__(cls, axes)
-
-    def __repr__(self) -> str:
-        return f"P{tuple.__repr__(self)}"
 
 
 class Init:
@@ -89,6 +77,46 @@ def param_specs(module: nn.Module) -> dict:
     for name, child in module.named_children():
         out[name] = param_specs(child)
     return out
+
+
+def stacked_tree(module: nn.Module, values: dict, prefix: str = "") -> dict:
+    """The reference's tree of ``module``'s parameters, each leaf taken
+    from ``values`` by its full parameter name; each ``ModuleList`` is
+    stacked (``torch.stack``) on a leading unit axis."""
+    if isinstance(module, nn.ModuleList):
+        layers = [stacked_tree(m, values, f"{prefix}{i}.")
+                  for i, m in enumerate(module)]
+        return tree_map(lambda *xs: torch.stack(xs), *layers)
+    out = {name: values[prefix + name]
+           for name, _ in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        out[name] = stacked_tree(child, values, f"{prefix}{name}.")
+    return out
+
+
+def param_paths(module: nn.Module) -> dict:
+    """Parameter name -> (its key path in ``stacked_tree``'s tree, its
+    index in that stacked leaf: a tuple, empty where nothing stacks)."""
+    out = {}
+
+    def walk(mod, prefix, path, index):
+        if isinstance(mod, nn.ModuleList):
+            for i, m in enumerate(mod):
+                walk(m, f"{prefix}{i}.", path, index + (i,))
+            return
+        for name, _ in mod.named_parameters(recurse=False):
+            out[prefix + name] = (path + (name,), index)
+        for name, child in mod.named_children():
+            walk(child, f"{prefix}{name}.", path + (name,), index)
+
+    walk(module, "", (), ())
+    return out
+
+
+def tree_get(tree: Any, path: tuple) -> Any:
+    for key in path:
+        tree = tree[key]
+    return tree
 
 
 # ------------------------------------------------------------------ dense

@@ -21,6 +21,8 @@ Semantics follow ``jax.lax`` with ``tiled=True``:
   order;
 * ``all_to_all`` splits along ``split_axis``, sends block j to rank j and
   concatenates what it receives along ``concat_axis`` in rank order;
+* ``psum_scatter`` gives each rank the sum of its block, added in rank
+  order;
 * ``pmax``/``pmin`` are exact in any order;
 * ``psum`` gathers the operands and adds them in rank order, so its result
   is bit-identical on every rank and under either transport;
@@ -31,6 +33,12 @@ Semantics follow ``jax.lax`` with ``tiled=True``:
 Every collective adds the bytes this rank sends to the other ranks of the
 axis to the axis's ``Traffic`` (a gather sends its block to each of them,
 an all-to-all all but its own block).
+
+An axis of an abstract mesh (``sharding.AbstractMesh``, transport
+``"dry"``) has no ranks behind it: its gathers, all-to-alls and
+reductions return what they would if every rank held this rank's
+operand, and count the bytes the real transport would send. The dry run
+runs the sharded train step so, on the ``meta`` device.
 """
 from __future__ import annotations
 
@@ -48,11 +56,17 @@ TRANSPORTS = ("nccl", "gloo")
 
 @dataclasses.dataclass
 class Traffic:
-    """Bytes this rank sent to other ranks."""
+    """Bytes this rank sent to other ranks, in all and by the kind of
+    collective (the reference's HLO names: "all-gather", "all-reduce",
+    "all-to-all", "collective-permute"), and the collectives counted."""
     bytes_sent: int = 0
+    by_kind: dict = dataclasses.field(default_factory=dict)
+    ops: int = 0
 
-    def add(self, nbytes: int) -> None:
+    def add(self, nbytes: int, kind: str = "all-gather") -> None:
         self.bytes_sent += int(nbytes)
+        self.by_kind[kind] = self.by_kind.get(kind, 0) + int(nbytes)
+        self.ops += 1
 
 
 class Axis(NamedTuple):
@@ -63,6 +77,7 @@ class Axis(NamedTuple):
     group: Optional[object]        # the axis's process group; None if size 1
     ranks: tuple                   # the group's global ranks, by coordinate
     transport: str                 # "nccl" | "gloo" | "none" (one process)
+    #                                | "dry" (an abstract mesh: no ranks)
     traffic: Traffic
 
 
@@ -158,12 +173,15 @@ def _staged(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     return x.cpu() if ax.transport == "gloo" and x.is_cuda else x
 
 
-def _gathered(x: torch.Tensor, ax: Axis) -> list[torch.Tensor]:
+def _gathered(x: torch.Tensor, ax: Axis,
+              kind: str = "all-gather") -> list[torch.Tensor]:
     """Every rank's ``x`` in rank order, where the transport holds them."""
     src = _staged(x, ax)
+    ax.traffic.add((ax.size - 1) * src.nbytes, kind)
+    if ax.transport == "dry":
+        return [src] * ax.size
     parts = [torch.empty_like(src) for _ in range(ax.size)]
     dist.all_gather(parts, src, group=ax.group)
-    ax.traffic.add((ax.size - 1) * src.nbytes)
     return parts
 
 
@@ -189,23 +207,40 @@ def all_to_all(x: torch.Tensor, ax: Axis, *, split_axis: int,
         raise ValueError(f"all_to_all: axis {split_axis} of {tuple(x.shape)}"
                          f" does not split into {ax.size} blocks")
     src = _staged(x.movedim(split_axis, 0), ax)
-    out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=ax.group)
-    ax.traffic.add(src.nbytes // ax.size * (ax.size - 1))
+    ax.traffic.add(src.nbytes // ax.size * (ax.size - 1), "all-to-all")
+    if ax.transport == "dry":
+        out = src
+    else:
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=ax.group)
     blocks = [b.movedim(0, split_axis) for b in out.chunk(ax.size, dim=0)]
     return torch.cat(blocks, dim=concat_axis).to(x.device)
 
 
+def psum_scatter(x: torch.Tensor, ax: Axis, *, axis: int) -> torch.Tensor:
+    """``lax.psum_scatter(tiled=True)``: the sum over the axis of block
+    ``index`` of ``x`` along ``axis`` (blocks added in rank order, as
+    ``psum`` adds), each rank sending the other ranks their blocks."""
+    if ax.size == 1:
+        return x
+    parts = all_to_all(x, ax, split_axis=axis,
+                       concat_axis=axis).chunk(ax.size, dim=axis)
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
 def barrier(ax: Axis) -> None:
     """Wait until every rank of the axis gets here (one rank: no-op)."""
-    if ax.size > 1:
+    if ax.size > 1 and ax.transport != "dry":
         dist.barrier(group=ax.group)
 
 
 def _reduce(x: torch.Tensor, ax: Axis, fn: Callable) -> torch.Tensor:
     if ax.size == 1:
         return x
-    return fn(torch.stack(_gathered(x, ax)), 0).to(x.device)
+    return fn(torch.stack(_gathered(x, ax, "all-reduce")), 0).to(x.device)
 
 
 def pmax(x: torch.Tensor, ax: Axis) -> torch.Tensor:
@@ -220,7 +255,7 @@ def psum(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     """Sum over the axis, added in rank order on every rank."""
     if ax.size == 1:
         return x
-    parts = _gathered(x, ax)
+    parts = _gathered(x, ax, "all-reduce")
     acc = parts[0]
     for p in parts[1:]:
         acc = acc + p
@@ -246,9 +281,9 @@ def chain_sum(continue_sum: Callable[[torch.Tensor], torch.Tensor],
     last = ax.size - 1
     if ax.index < last:
         dist.send(out, dst=ax.ranks[ax.index + 1], group=ax.group)
-        ax.traffic.add(out.nbytes)
+        ax.traffic.add(out.nbytes, "collective-permute")
     else:
-        ax.traffic.add(last * out.nbytes)
+        ax.traffic.add(last * out.nbytes, "collective-permute")
     dist.broadcast(out, src=ax.ranks[last], group=ax.group)
     return out.to(like.device)
 

@@ -1,8 +1,7 @@
 """Configuration for the solver engine (port of ``repro/solver/config.py``).
 
-The same fields and defaults as the reference, plus ``device``. Fields of
-backends that are not ported yet are kept (and validated at ``solve()``
-entry) so a configuration means the same in both packages.
+The same fields and defaults as the reference, plus ``device``, so a
+configuration means the same in both packages.
 """
 from __future__ import annotations
 

@@ -48,12 +48,14 @@ def global_norm(tree: Any) -> torch.Tensor:
 def adamw_update_(
     grads: Any, state: AdamWState, params: Any, lr, *,
     b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-    weight_decay: float = 0.1, clip_norm: float = 1.0,
+    weight_decay: float = 0.1, clip_norm: float = 1.0, norm=None,
 ) -> AdamWState:
     """The update written into ``params`` and the state's moments in
     place, leaf by leaf (the temporaries are one leaf's); -> the state with
-    the same moment trees and the new count."""
-    gn = global_norm(grads)
+    the same moment trees and the new count. ``norm`` is the gradients'
+    global norm where ``grads`` hold only blocks of them (a mesh step);
+    None computes it from ``grads``."""
+    gn = global_norm(grads) if norm is None else norm
     scale = torch.clamp(clip_norm / torch.clamp(gn, min=1e-12), max=1.0)
     count = state.count + 1
     c = count.to(torch.float32)

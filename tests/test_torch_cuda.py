@@ -898,3 +898,79 @@ def test_launch_train_smoke_on_the_card(dev, capsys):
              if line.startswith("[train] step")]
     losses = [float(line.split("loss=")[1].split()[0]) for line in lines]
     assert len(losses) == 2 and np.isfinite(losses).all()
+
+
+def _moe_params(e, d=64, f=128, seed=0):
+    rng = _gen(seed)
+    return {"router": rng.standard_normal((d, e)).astype(np.float32) / 8,
+            "gate": rng.standard_normal((e, d, f)).astype(np.float32) / 8,
+            "up": rng.standard_normal((e, d, f)).astype(np.float32) / 8,
+            "down": rng.standard_normal((e, f, d)).astype(np.float32) / 11}
+
+
+def _moe_on(params, device):
+    from repro_torch.models.layers.common import Init
+    from repro_torch.models.layers.moe import MoE
+    d, e = params["router"].shape
+    moe = MoE(Init(None, device="meta"), d, params["gate"].shape[-1], e)
+    moe = moe.to_empty(device=device)
+    with torch.no_grad():
+        for k, v in params.items():
+            getattr(moe, k).copy_(torch.from_numpy(v))
+    return moe
+
+
+def _moe_run(moe, x, w):
+    """y, aux and the gradients of mean(y . w) + aux."""
+    from repro_torch.models.layers.moe import moe_apply
+    x = x.clone().requires_grad_()
+    out = moe_apply(moe, x, top_k=2, capacity_factor=8.0)
+    ((out.y * w).sum() / (x.shape[0] * x.shape[1])
+     + out.aux_loss).backward()
+    grads = {n: p.grad.cpu() for n, p in moe.named_parameters()}
+    grads["x"] = x.grad.cpu()
+    return out.y.detach().cpu(), out.aux_loss.item(), grads
+
+
+def _moe_card_rank(cases):
+    """One rank of a (1, 2) (data, model) mesh on the card."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.partitioning import set_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((1, 2), ("data", "model"))
+    out = []
+    for params, x, w in cases:
+        moe = _moe_on(params, "cuda")
+        with set_mesh(mesh):
+            out.append(_moe_run(moe, torch.from_numpy(x).cuda(),
+                                torch.from_numpy(w).cuda()))
+    return out
+
+
+def test_sharded_moe_on_the_card_equals_the_dense_path(dev):
+    """The MoE's sharded dispatch on two ranks sharing the card (gloo)
+    against the dense path on the card, float32 with TF32 off, at
+    ``capacity_factor=8.0`` (nothing dropped): y and aux within 1e-5, the
+    gradients too (the expert weights summed over the model ranks, each
+    of which uses only its block)."""
+    from repro_torch.sharding import dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = []
+    for e in (8, 3):                     # expert-parallel, ffn-parallel
+        rng = _gen(e)
+        cases.append((_moe_params(e),
+                      rng.standard_normal((2, 64, 64)).astype(np.float32),
+                      rng.standard_normal((2, 64, 64)).astype(np.float32)))
+    ranks = dist.spawn(_moe_card_rank, 2, device="cuda", args=(cases,))
+    for i, (params, x, w) in enumerate(cases):
+        y, aux, g = _moe_run(_moe_on(params, dev), torch.from_numpy(x).to(dev),
+                             torch.from_numpy(w).to(dev))
+        for r in ranks:
+            ry, raux, rg = r[i]
+            assert (ry - y).abs().max() <= 1e-5
+            assert abs(raux - aux) <= 1e-5
+            for name in ("router", "x"):
+                assert (rg[name] - g[name]).abs().max() <= 1e-5, name
+        for name in ("gate", "up", "down"):
+            got = ranks[0][i][2][name] + ranks[1][i][2][name]
+            assert (got - g[name]).abs().max() <= 1e-5, name

@@ -48,7 +48,11 @@ def test_importing_the_solver_loads_no_jax():
             "repro_torch.configs, repro_torch.models, repro_torch.serve, "
             "repro_torch.serve.kvcache, repro_torch.launch.serve, "
             "repro_torch.train, repro_torch.runtime.compression, "
-            "repro_torch.runtime.fault, repro_torch.launch.train;"
+            "repro_torch.runtime.fault, repro_torch.launch.train, "
+            "repro_torch.runtime.elastic, repro_torch.sharding.partitioning, "
+            "repro_torch.launch.dryrun, repro_torch.launch.hlo_cost, "
+            "repro_torch.launch.hlo_analysis, "
+            "repro_torch.models.layers.moe;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "assert not bad, bad")
