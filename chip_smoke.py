@@ -267,6 +267,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import obs  # noqa: E402
+
 N_MAIN = 10_609          # 103 x 103 pixels
 N_RAGGED, D_RAGGED = 4_099, 64
 N_BLOBS = 200_000        # benchmarks/bench_scaling.py's largest row
@@ -294,6 +296,12 @@ def check(cond: bool, msg: str) -> None:
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def host_copies(site: str) -> int:
+    """The counter ``host_copies.<site>`` of ``repro_torch.obs``: the
+    site's reads since its last reset."""
+    return obs.counters().get("host_copies." + site, 0)
 
 
 def nvidia_smi() -> str:
@@ -865,12 +873,11 @@ def run_solve_streaming(blobs) -> None:
     ``sharded_streaming`` (512-point shards, no kernel); wall time, cluster
     count and the host reads it makes (one per shard, one for the exemplar
     tier, one for the final assignment)."""
-    from repro_torch.core import streaming
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.solver import SolveConfig, solve
 
     n, shard = blobs.shape[0], SolveConfig().shard_size
-    streaming.host_reads = 0
+    obs.reset_counters("host_copies.streaming")
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -878,18 +885,19 @@ def run_solve_streaming(blobs) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     shards = -(-n // shard)
+    reads = host_copies("streaming")
     emit({"phase": "solve_streaming", "backend": res.backend, "n": n,
           "levels": res.levels, "shards": shards, "wall_s": wall,
           "n_sweeps": res.n_sweeps, "n_clusters": res.n_clusters.tolist(),
-          "host_reads": streaming.host_reads, "launches": launch_counts()})
+          "host_reads": reads, "launches": launch_counts()})
     check(res.backend == "sharded_streaming",
           f"solve(x, levels=1) on {n} points chose {res.backend}")
     e = res.exemplars[0]
     check(res.exemplars.shape == (1, n) and e.min() >= 0 and e.max() < n
           and res.n_clusters[0] == len(np.unique(e)),
           "sharded_streaming: bad exemplars")
-    check(streaming.host_reads == shards + 2,
-          f"sharded_streaming: {streaming.host_reads} host reads, expected "
+    check(reads == shards + 2,
+          f"sharded_streaming: {reads} host reads, expected "
           f"{shards + 2}")
 
 
@@ -1049,11 +1057,12 @@ def run_solve_graph(blobs, topk_default) -> dict:
 
     torch.cuda.synchronize()
     reset_launch_counts()
+    obs.reset_counters("host_copies.graph_affinity")
     t0 = time.perf_counter()
     res = solve(el, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    reads, launches = affinity.host_reads, launch_counts()
+    reads, launches = host_copies("graph_affinity"), launch_counts()
     emit({"phase": "solve_graph", "backend": res.backend, "levels":
           res.levels, "wall_s": wall, "rounds": res.n_sweeps,
           "host_reads": reads, "converged": res.converged,
@@ -1184,11 +1193,12 @@ def run_solve_graph(blobs, topk_default) -> dict:
 
     torch.cuda.synchronize()
     reset_launch_counts()
+    obs.reset_counters("host_copies.graph_affinity")
     t0 = time.perf_counter()
     pre = solve(blobs, preseed="graph", device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, reads = launch_counts(), affinity.host_reads
+    launches, reads = launch_counts(), host_copies("graph_affinity")
     paths["dense_topk preseed"] = launches["topk_build"]
     # the fused and reference builds under the preseed, at the 20,000
     # blobs (a depth cut: at 200,000 each run's host graph work took ~30 s)
@@ -1939,7 +1949,6 @@ def run_solve_twostage(blobs, pixels) -> None:
     ``build="reference"``. Then the two-stage build alone with cosine on
     the 512 x 512 Mandrill pixels against the reference scan."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels import topk_similarity as ts
     from repro_torch.solver import SolveConfig, solve
     from repro_torch.solver.topk_build import (
         build_topk_similarity, resolve_build_backend,
@@ -1955,12 +1964,12 @@ def run_solve_twostage(blobs, pixels) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    ts.host_syncs = 0
+    obs.reset_counters("host_copies.twostage_build")
     t0 = time.perf_counter()
     res = solve(blobs, metric=metric, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, syncs = launch_counts(), ts.host_syncs
+    launches, syncs = launch_counts(), host_copies("twostage_build")
     emit({"phase": "solve_twostage", "backend": res.backend, "build": build,
           "metric": metric, "n": n, "k": K_TOPK, "levels": res.levels,
           "wall_s": wall, "n_sweeps": res.n_sweeps,
@@ -2003,12 +2012,12 @@ def run_solve_twostage(blobs, pixels) -> None:
         check(resolve_build_backend("auto", n=x.shape[0], k=K_TOPK,
                                     metric=met, platform="cuda")
               == "twostage", f"{case}: auto does not take twostage")
-        ts.host_syncs = 0
+        obs.reset_counters("host_copies.twostage_build")
         t0 = time.perf_counter()
         two, two_ms = timed(lambda: build_topk_similarity(
             x, K_TOPK, cfg.replace(build="twostage")))
         two_wall = time.perf_counter() - t0
-        syncs = ts.host_syncs
+        syncs = host_copies("twostage_build")
         ref, ref_ms = timed(lambda: build_topk_similarity(
             x, K_TOPK, cfg.replace(build="reference")))
         equal = torch.equal(two[0], ref[0]) and torch.equal(two[1], ref[1])
@@ -2309,12 +2318,14 @@ def dist_rank(pixels, blobs, device: str, graph_path: str,
         gidx = torch.from_numpy(g["idx"]).to(dev)
     sync()
     load_s = time.perf_counter() - t0
+    obs.reset_counters("host_copies.graph_affinity")
     hist, r, conv, trace = run("graph_sharded", workers,
                                lambda: affinity.run_graph_affinity(
                                    vals, gidx, levels=cfg.levels,
                                    mesh=workers))
     out["graph_sharded"].update(
-        n=vals.shape[0], load_s=load_s, host_reads=affinity.host_reads,
+        n=vals.shape[0], load_s=load_s,
+        host_reads=host_copies("graph_affinity"),
         rounds=r,
         converged=conv, trace=trace[:r].tolist(),
         padded_n=hist.shape[1], digest=digest(hist[:, :vals.shape[0]]))

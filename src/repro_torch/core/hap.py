@@ -23,6 +23,7 @@ from typing import Callable, Literal, NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.affinity import masked_top2
 
 SweepOrder = Literal["sequential", "parallel"]
@@ -178,17 +179,22 @@ def jacobi_sweep(state: HAPState, first_iter: bool, *, lam: float,
 
     # --- Job 1: tau^{l+1} and c from the previous iteration; tau[0] = +inf.
     if not first_iter:
-        tau = torch.cat([tau[:1], red.tau(r[:-1], c[:-1])], dim=0)
-        c = red.c(a, r)
-    r = update_r(s, a, tau, r)
+        with obs.span("sweep.levels"):
+            tau = torch.cat([tau[:1], red.tau(r[:-1], c[:-1])], dim=0)
+            c = red.c(a, r)
+    with obs.span("sweep.r"):
+        r = update_r(s, a, tau, r)
 
     # --- Job 2: phi^{l-1} from level l's previous alpha; phi[L-1] = 0.
-    phi = torch.cat([red.phi(a[1:], s[1:]), phi[-1:]], dim=0)
-    a = update_a(r, c, phi, a)
+    with obs.span("sweep.levels"):
+        phi = torch.cat([red.phi(a[1:], s[1:]), phi[-1:]], dim=0)
+    with obs.span("sweep.a"):
+        a = update_a(r, c, phi, a)
 
     if s_mode != "off":
-        s = torch.cat([s[:1], red.s_next(s[1:], a[:-1], r[:-1], kappa,
-                                         s_mode)], dim=0)
+        with obs.span("sweep.levels"):
+            s = torch.cat([s[:1], red.s_next(s[1:], a[:-1], r[:-1], kappa,
+                                             s_mode)], dim=0)
     return HAPState(s, r, a, tau, phi, c)
 
 

@@ -10,6 +10,8 @@ from typing import Literal, Optional
 
 import torch
 
+from repro_torch import obs
+
 Strategy = Literal["median", "range_mid", "random", "constant"]
 
 
@@ -52,7 +54,7 @@ def random_preference(generator: torch.Generator, n: int,
     the same numbers whatever ``device`` is."""
     u = torch.rand(n, generator=generator, dtype=dtype,
                    device=generator.device)
-    return (low + (high - low) * u).to(device)
+    return obs.to_device(low + (high - low) * u, device, "random_preference")
 
 
 def make_preferences(

@@ -13,7 +13,7 @@ The shards are drawn with the reference's numpy calls
 same shards and can reach the same decisions. The solves run in PyTorch on
 the device of the points they are given; what the host needs (each tier's
 exemplar labels, the final assignment) it reads back, and every such read
-adds one to ``host_reads``.
+adds one to the counter ``host_copies.streaming`` of ``repro_torch.obs``.
 
 ``converged_ap`` adds the paper's "run until convergence" stopping rule:
 exemplar assignments stable for ``patience`` sweeps. The reference's
@@ -27,16 +27,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.affinity import (
     APState, affinity_propagation, availability_update, responsibility_update,
 )
 from repro_torch.core.assignments import canonicalize
 from repro_torch.core.preferences import median_preference
 from repro_torch.core.similarity import pairwise_similarity, set_preferences
-
-#: device-to-host reads made by this module since the last reset
-host_reads = 0
-
 
 class StreamingResult(NamedTuple):
     labels: np.ndarray          # (N,) global cluster ids
@@ -116,9 +113,7 @@ def assign_nearest_exemplar(
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    global host_reads
-    host_reads += 1
-    return t.cpu().numpy()
+    return obs.to_host(t, "streaming").numpy()
 
 
 def _ap_labels(x: torch.Tensor, iterations: int, damping: float,
@@ -192,7 +187,6 @@ def converged_ap(
     assignment is unchanged for ``patience`` consecutive sweeps (bounded
     by ``max_iterations``). One host read per sweep decides whether to
     go on."""
-    global host_reads
     s = s.float()
     n = s.shape[-1]
     state = APState(torch.zeros_like(s), torch.zeros_like(s))
@@ -204,8 +198,8 @@ def converged_ap(
         a = damping * state.a + (1.0 - damping) * availability_update(r)
         state = APState(r, a)
         e_new = torch.argmax(a + r, dim=1).to(torch.int32)
-        host_reads += 1
-        stable = stable + 1 if bool(torch.equal(e_new, e)) else 0
+        same = bool(obs.to_host((e_new == e).all(), "streaming"))
+        stable = stable + 1 if same else 0
         e = e_new
         it += 1
     return ConvergedAP(e, it, stable >= patience)

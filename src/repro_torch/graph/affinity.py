@@ -25,7 +25,8 @@ fixed-order segment sums because a max or a min is exact in any order:
 the atomics of the CUDA scatter cannot change the result, and ±0 does not
 matter, since the achievers of the max are found by ``==``. Each round
 makes one host read, the stop test (the relabel count and the cluster
-count in one transfer), counted in ``host_reads``.
+count in one transfer), counted in ``host_copies.graph_affinity`` of
+``repro_torch.obs``.
 
 The hierarchy output reuses the HAP convention: level ``l`` of the
 ``(levels, N)`` exemplar stack is the label snapshot ``levels-1-l``
@@ -54,14 +55,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.sharding import dist
 from repro_torch.sharding.partitioning import row_block
 
 AXIS = "workers"
-
-#: host reads of the last ``run_graph_affinity`` call: one per round
-host_reads = 0
-
 
 def default_rounds(n: int) -> int:
     """Round budget when ``SolveConfig.graph_rounds`` is None: Borůvka
@@ -123,7 +121,6 @@ def _loop(select, levels: int, n: int, n_real: int, max_rounds: int,
     when a round relabels nothing; only the first ``n_real`` nodes count
     (the rest are padding). Returns ``(hist, rounds, converged, trace)``
     with ``hist`` a list of the last ``levels`` label snapshots."""
-    global host_reads
     ids = torch.arange(n, device=device)
     real = ids < n_real
     labels = ids
@@ -135,8 +132,8 @@ def _loop(select, levels: int, n: int, n_real: int, max_rounds: int,
         new = parent[labels]
         stats = torch.stack([((new != labels) & real).sum(),
                              ((new == ids) & real).sum()])
-        changes, clusters = stats.tolist()       # the round's host read
-        host_reads += 1
+        # the round's host read
+        changes, clusters = obs.to_host(stats, "graph_affinity").tolist()
         hist = hist[1:] + [new]
         trace[r] = changes
         labels = new
@@ -177,7 +174,6 @@ def run_graph_affinity(vals, idx, *, levels: int = 1,
     selects the sharded program; its ``hist`` is in the padded N' (the
     engine strips the padding), and every result equals the one-device
     loop's bit for bit."""
-    global host_reads
     vals = torch.as_tensor(vals).float()
     idx = torch.as_tensor(idx, device=vals.device).long()
     n, _ = vals.shape
@@ -214,7 +210,6 @@ def run_graph_affinity(vals, idx, *, levels: int = 1,
             # exact int32 min: candidates are node ids < n_total
             return dist.pmin(cand.to(torch.int32), ax).long()
 
-    host_reads = 0
     hist, r, conv, trace = _loop(select, levels, n_total, n_real, max_rounds,
                                  target, jump, vals.device)
     return torch.stack(hist).to(torch.int32), r, conv, trace

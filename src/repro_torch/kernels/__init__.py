@@ -3,46 +3,29 @@
 Each kernel module holds a wrapper and, beside it, the kernel's plain
 PyTorch version (``plain``). A wrapper runs the plain version only for
 CPU tensors; for CUDA tensors it launches its kernel or raises — there is
-no fallback. Every launch adds one to the module's ``launches`` count,
-through ``count_launch``: the serving path launches from several worker
-threads, and one lock keeps their increments from being lost.
+no fallback. Every launch adds one to the counter ``launches.<kernel>`` of
+``repro_torch.obs``, whose one lock keeps the increments of the serving
+path's worker threads from being lost; ``launch_counts`` and
+``reset_launch_counts`` are views of those counters.
 """
 from __future__ import annotations
 
-import importlib
-import threading
-
 import torch
+
+from repro_torch import obs
 
 KERNELS = ("similarity", "responsibility", "availability", "topk_build",
            "flash_attention")
 
 
-def _module(name: str):
-    return importlib.import_module(f"repro_torch.kernels.{name}")
-
-
-_COUNT_LOCK = threading.Lock()
-
-
-def count_launch(kernel: str) -> None:
-    """Add one to ``repro_torch.kernels.<kernel>.launches``; every
-    wrapper calls it where it launches its kernel, and nowhere else."""
-    module = _module(kernel)
-    with _COUNT_LOCK:
-        module.launches += 1
-
-
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    with _COUNT_LOCK:
-        return {name: _module(name).launches for name in KERNELS}
+    counts = obs.counters()
+    return {name: counts.get("launches." + name, 0) for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    with _COUNT_LOCK:
-        for name in KERNELS:
-            _module(name).launches = 0
+    obs.reset_counters("launches.")
 
 
 def on_cpu(kernel: str, *tensors: torch.Tensor) -> bool:

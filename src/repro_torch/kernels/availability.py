@@ -15,14 +15,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import (
-    _build, check_operands, count_launch, on_cpu, ref, stream_of,
+    _build, check_operands, on_cpu, ref, stream_of,
 )
 
 #: The plain PyTorch version.
 plain = ref.availability
-
-launches = 0
 
 #: Rows per chunk of the kernel's column sums (``ROWS_PER_CHUNK`` in
 #: ``csrc/availability.cu``).
@@ -52,7 +51,7 @@ def availability(r: torch.Tensor, c: torch.Tensor, phi: torch.Tensor,
             out.data_ptr(), scratch.data_ptr(), n, ctypes.c_float(lam),
             ctypes.c_float(1.0 - lam), stream_of(r))
     _build.check(err, "availability")
-    count_launch("availability")
+    obs.count("launches.availability")
     return out
 
 

@@ -31,9 +31,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build, count_launch, on_cpu, ref, stream_of
-
-launches = 0
+from repro_torch import obs
+from repro_torch.kernels import _build, on_cpu, ref, stream_of
 
 #: Query rows per block, at least (``MIN_BQ`` in
 #: ``csrc/flash_attention.cu``); per instance: ``block_q``.
@@ -100,7 +99,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k.shape[1], d, int(causal), int(q.dtype == torch.bfloat16),
             stream_of(q))
     _build.check(err, "flash_attention")
-    count_launch("flash_attention")
+    obs.count("launches.flash_attention")
     return out
 
 

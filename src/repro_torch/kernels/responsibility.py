@@ -14,14 +14,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import (
-    _build, check_operands, count_launch, on_cpu, ref, stream_of,
+    _build, check_operands, on_cpu, ref, stream_of,
 )
 
 #: The plain PyTorch version.
 plain = ref.responsibility
-
-launches = 0
 
 
 def responsibility(s: torch.Tensor, a: torch.Tensor, tau: torch.Tensor,
@@ -46,5 +45,5 @@ def responsibility(s: torch.Tensor, a: torch.Tensor, tau: torch.Tensor,
             out.data_ptr(), n, m, ctypes.c_float(lam),
             ctypes.c_float(1.0 - lam), stream_of(s))
     _build.check(err, "responsibility")
-    count_launch("responsibility")
+    obs.count("launches.responsibility")
     return out

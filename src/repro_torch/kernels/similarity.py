@@ -10,14 +10,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import (
-    _build, check_operands, count_launch, on_cpu, ref, stream_of,
+    _build, check_operands, on_cpu, ref, stream_of,
 )
 
 #: The plain PyTorch version (f32 accumulation, the reference's formula).
 plain = ref.neg_sqeuclidean
-
-launches = 0
 
 
 def neg_sqeuclidean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -33,7 +32,7 @@ def neg_sqeuclidean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             x.data_ptr(), y.data_ptr(), out.data_ptr(), n, m, d,
             stream_of(x))
     _build.check(err, "similarity")
-    count_launch("similarity")
+    obs.count("launches.similarity")
     return out
 
 

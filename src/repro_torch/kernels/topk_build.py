@@ -23,14 +23,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import (
-    _build, check_operands, count_launch, on_cpu, ref, stream_of,
+    _build, check_operands, on_cpu, ref, stream_of,
 )
 from repro_torch.kernels.topk_similarity import (
     _by_column, _check_k, _ordered_tile, scan_topk,
 )
-
-launches = 0
 
 #: Tile shape of ``plain`` and ``in_kernel_order`` (the reference scan's).
 BLOCK_ROWS, BLOCK_COLS = 1024, 4096
@@ -73,7 +72,7 @@ def topk_similarity_fused(x: torch.Tensor, k: int):
             x.data_ptr(), scratch.data_ptr(), vals.data_ptr(), idx.data_ptr(),
             n, d, k, stream_of(x))
     _build.check(err, "topk_build")
-    count_launch("topk_build")
+    obs.count("launches.topk_build")
     return _by_column(vals, idx)
 
 

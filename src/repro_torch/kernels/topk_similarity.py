@@ -42,6 +42,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.similarity import _METRICS
 from repro_torch.kernels import similarity
 from repro_torch.sharding.partitioning import kd_median_cut
@@ -216,10 +217,11 @@ def topk_similarity(x: torch.Tensor, k: int, *,
 
 
 # ------------------------------------------------------- two-stage build
-#: host reads of the two-stage build (the kd ordering's copy of the
-#: points, each round's and each residual slab's "any row still live?"),
-#: since the last reset; on the card each one waits for the device.
-host_syncs = 0
+def _any_on_host(live: torch.Tensor) -> bool:
+    """Whether any row is still live: a host read (``host_copies.
+    twostage_build``, with the kd ordering's copy of the points), which on
+    the card waits for the device."""
+    return bool(obs.to_host(live.any(), "twostage_build"))
 
 
 def kd_order(x: np.ndarray, leaf: int) -> np.ndarray:
@@ -261,7 +263,6 @@ def topk_similarity_twostage(
     slabs of ``residual_chunks`` cells merges whatever the cap left live,
     skipping a slab no row needs. ``perm`` overrides the kd ordering.
     """
-    global host_syncs
     y = x if cols is None else cols
     n = int(y.shape[0])
     _check_k(k, n)
@@ -275,8 +276,8 @@ def topk_similarity_twostage(
     nch = -(-n // chunk)
     boot = min(max(2, -(-(k + 1) // chunk) + 1), nch)
     if perm is None:
-        host_syncs += 1
-        perm = kd_order(y.detach().cpu().numpy(), chunk)
+        perm = kd_order(obs.to_host(y.detach(), "twostage_build").numpy(),
+                        chunk)
     return _twostage(
         x, y, torch.as_tensor(perm, device=x.device).long(), row_offset,
         k=k, metric=metric, block_rows=min(block_rows, int(x.shape[0])),
@@ -287,7 +288,6 @@ def topk_similarity_twostage(
 
 def _twostage(x, y, perm, row_offset, *, k, metric, block_rows, chunk,
               round_chunks, max_rounds, residual_chunks, boot_chunks):
-    global host_syncs
     dev = x.device
     m, n, cw = x.shape[0], y.shape[0], chunk
     inf = float("inf")
@@ -357,8 +357,7 @@ def _twostage(x, y, perm, row_offset, *, k, metric, block_rows, chunk,
         # raises the row minimum and shrinks the live set
         for _ in range(max_rounds):
             live = live_cells(vals, done)
-            host_syncs += 1
-            if not bool(live.any()):
+            if not _any_on_host(live):
                 break
             lv, cid = torch.topk(torch.where(live, -lbd2, NEG_INF),
                                  round_chunks, dim=1)
@@ -371,8 +370,7 @@ def _twostage(x, y, perm, row_offset, *, k, metric, block_rows, chunk,
         for c0 in range(0, nch, residual_chunks):
             c1 = min(c0 + residual_chunks, nch)
             live = live_cells(vals, done, c0, c1)
-            host_syncs += 1
-            if not bool(live.any()):
+            if not _any_on_host(live):
                 continue
             span = slice(c0 * cw, c1 * cw)
             cols_ = gcol[span][None, :].expand(b, -1)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import hap
 from repro_torch.kernels import ops
 from repro_torch.sharding.dist import psum
@@ -99,49 +100,55 @@ def drive_sweeps(init, sweep, assign, levels: int, n: int, *,
     resumed run execute the same sweeps on the same state, so resume is
     bit-exact by construction, as in the reference.
     """
-    if carry is None:
-        carry = initial_carry(init, levels, n, max_iterations)
-    state, e, stable, it, trace = carry
-    trace = trace.copy()
-    until = max_iterations if until is None else until
+    with obs.span("sweeps"):
+        if carry is None:
+            carry = initial_carry(init, levels, n, max_iterations)
+        state, e, stable, it, trace = carry
+        trace = trace.copy()
+        until = max_iterations if until is None else until
 
-    def count(e_new, e_old):
-        diff = e_new != e_old
-        if count_mask is not None:
-            diff = diff & count_mask
-        return diff.sum()
+        def count(e_new, e_old):
+            diff = e_new != e_old
+            if count_mask is not None:
+                diff = diff & count_mask
+            return diff.sum()
 
-    def reduce(counts):
-        return counts if axis is None else psum(counts, axis)
+        def reduce(counts):
+            return counts if axis is None else psum(counts, axis)
 
-    if stop == "fixed":
-        # the patience exit is off; the stable count is kept for the
-        # carry (the reference's segments keep it too)
-        start = it
-        changes = torch.empty(until - start, dtype=torch.int64,
-                              device=e.device)
-        for it in range(start, until):
-            state = sweep(state, it)
-            e_new = assign(state)
-            changes[it - start] = count(e_new, e)
-            e = e_new
-        it = until
-        counts = reduce(changes).cpu().numpy()       # the one host read
-        trace[start:it] = counts
-        for changed in counts:
-            stable = stable + 1 if changed == 0 else 0
-    else:
-        while it < until and stable < patience:
-            state = sweep(state, it)
-            e_new = assign(state)
-            changed = int(reduce(count(e_new, e)))  # host sync, once a sweep
-            stable = stable + 1 if changed == 0 else 0
-            trace[it] = changed
-            e = e_new
-            it += 1
-    if segmented:
-        return state, e, stable, it, trace
-    return state, e, it, stop == "converged" and stable >= patience, trace
+        if stop == "fixed":
+            # the patience exit is off; the stable count is kept for the
+            # carry (the reference's segments keep it too)
+            start = it
+            changes = torch.empty(until - start, dtype=torch.int64,
+                                  device=e.device)
+            for it in range(start, until):
+                state = sweep(state, it)
+                with obs.span("sweep.assign"):
+                    e_new = assign(state)
+                    changes[it - start] = count(e_new, e)
+                e = e_new
+            it = until
+            # the one host read
+            counts = obs.to_host(reduce(changes), "sweeps").numpy()
+            trace[start:it] = counts
+            for changed in counts:
+                stable = stable + 1 if changed == 0 else 0
+        else:
+            while it < until and stable < patience:
+                state = sweep(state, it)
+                with obs.span("sweep.assign"):
+                    e_new = assign(state)
+                    # the host read, once a sweep
+                    changed = int(obs.to_host(reduce(count(e_new, e)),
+                                              "sweeps"))
+                stable = stable + 1 if changed == 0 else 0
+                trace[it] = changed
+                e = e_new
+                it += 1
+        if segmented:
+            return state, e, stable, it, trace
+        return state, e, it, stop == "converged" and stable >= patience, trace
 
 
 def run_dense(s3: torch.Tensor, *, order: str, max_iterations: int,

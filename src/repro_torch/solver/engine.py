@@ -29,6 +29,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.assignments import canonicalize_levels, dense_labels
 from repro_torch.core.mrhap import pad_similarity
 from repro_torch.core.preferences import make_preferences
@@ -145,7 +146,8 @@ def _normalize_input(data, cfg: SolveConfig, device: torch.device):
 
     def to_device(a):
         if not isinstance(a, torch.Tensor):
-            a = torch.from_numpy(np.array(a, dtype=np.float32))
+            a = obs.to_device(torch.from_numpy(np.array(a, dtype=np.float32)),
+                              device, "input")
         return a.to(device=device, dtype=torch.float32)
 
     if arr.ndim == 3:
@@ -181,29 +183,31 @@ def _densify_edges(el: EdgeList, cfg: SolveConfig, device: torch.device):
 
 def _build_similarity(x: torch.Tensor, cfg: SolveConfig, backend: str):
     """Points -> (L, N, N) stack with preferences on the diagonal."""
-    if backend == "dense_fused" and cfg.metric == "neg_sqeuclidean":
-        from repro_torch.kernels import ops
-        s = ops.neg_sqeuclidean(x)
-    else:
-        s = pairwise_similarity(x, metric=cfg.metric)
-    pref = cfg.preference
-    if pref is None and cfg.preseed != "graph":
-        return stack_levels(s, cfg.levels)
-    if isinstance(pref, str):
-        gen = torch.Generator().manual_seed(cfg.seed)
-        pref = make_preferences(s, pref, generator=gen)
-    if cfg.preseed == "graph":
-        # seed the preference vector from a cheap Borůvka pass over the
-        # matrix's top-k graph (the matrix already exists, so compressing
-        # it costs no extra build)
-        from repro_torch.graph.affinity import preseed_preferences
-        from repro_torch.kernels.topk_similarity import topk_from_dense
-        from repro_torch.solver.topk import resolve_k
-        vals, idx = topk_from_dense(s, resolve_k(cfg.k, s.shape[0]))
-        pref = preseed_preferences(
-            vals, idx, 0.0 if pref is None else pref,
-            target=cfg.graph_target_clusters, max_rounds=cfg.graph_rounds)
-    return stack_levels(set_preferences(s, pref), cfg.levels)
+    with obs.span("build"):
+        if backend == "dense_fused" and cfg.metric == "neg_sqeuclidean":
+            from repro_torch.kernels import ops
+            s = ops.neg_sqeuclidean(x)
+        else:
+            s = pairwise_similarity(x, metric=cfg.metric)
+        pref = cfg.preference
+        if pref is None and cfg.preseed != "graph":
+            return stack_levels(s, cfg.levels)
+        if isinstance(pref, str):
+            gen = torch.Generator().manual_seed(cfg.seed)
+            with obs.span("preference"):
+                pref = make_preferences(s, pref, generator=gen)
+        if cfg.preseed == "graph":
+            # seed the preference vector from a cheap Borůvka pass over the
+            # matrix's top-k graph (the matrix already exists, so compressing
+            # it costs no extra build)
+            from repro_torch.graph.affinity import preseed_preferences
+            from repro_torch.kernels.topk_similarity import topk_from_dense
+            from repro_torch.solver.topk import resolve_k
+            vals, idx = topk_from_dense(s, resolve_k(cfg.k, s.shape[0]))
+            pref = preseed_preferences(
+                vals, idx, 0.0 if pref is None else pref,
+                target=cfg.graph_target_clusters, max_rounds=cfg.graph_rounds)
+        return stack_levels(set_preferences(s, pref), cfg.levels)
 
 
 # ------------------------------------------------------------------ solve
@@ -218,56 +222,64 @@ def solve(data, config: Optional[SolveConfig] = None,
     rest). Keyword overrides patch ``config`` field by field:
     ``solve(x, backend="dense_fused", max_iterations=80)``.
     """
-    cfg = config or SolveConfig()
-    if overrides:
-        cfg = cfg.replace(**overrides)
-    device = resolve_device(cfg.device)
-    cfg = cfg.replace(device=str(device))
-    # a launch that torchrun's environment describes joins its group
-    # before routing counts the ranks; in one process a no-op
-    maybe_init_distributed(device)
+    with obs.span("solve", call=obs.count("solves")):
+        return _solve(data, config, overrides)
 
-    x, s3, el, n = _normalize_input(data, cfg, device)
-    validate_config(cfg, n)
 
-    backend = cfg.backend
-    if backend == "auto":
-        backend = route(n, x is not None, device, cfg,
-                        has_edges=el is not None)
-    spec = get_backend(backend)
+def _solve(data, config: Optional[SolveConfig], overrides: dict
+           ) -> SolveResult:
+    with obs.span("prepare"):
+        cfg = config or SolveConfig()
+        if overrides:
+            cfg = cfg.replace(**overrides)
+        device = resolve_device(cfg.device)
+        cfg = cfg.replace(device=str(device))
+        # a launch that torchrun's environment describes joins its group
+        # before routing counts the ranks; in one process a no-op
+        maybe_init_distributed(device)
 
-    if cfg.checkpoint_every > 0 or cfg.resume_from:
-        if backend not in CHECKPOINT_BACKENDS:
+        x, s3, el, n = _normalize_input(data, cfg, device)
+        validate_config(cfg, n)
+
+        backend = cfg.backend
+        if backend == "auto":
+            backend = route(n, x is not None, device, cfg,
+                            has_edges=el is not None)
+        spec = get_backend(backend)
+
+        if cfg.checkpoint_every > 0 or cfg.resume_from:
+            if backend not in CHECKPOINT_BACKENDS:
+                raise ValueError(
+                    f"checkpoint/resume is supported by {CHECKPOINT_BACKENDS} "
+                    f"(the long-running paths), not backend {backend!r}; drop "
+                    "checkpoint_every/resume_from or pick a supported backend")
+        if spec.needs_points and x is None:
+            hint = (" — an EdgeList carries no point coordinates"
+                    if el is not None else "")
             raise ValueError(
-                f"checkpoint/resume is supported by {CHECKPOINT_BACKENDS} "
-                f"(the long-running paths), not backend {backend!r}; drop "
-                "checkpoint_every/resume_from or pick a supported backend")
-    if spec.needs_points and x is None:
-        hint = (" — an EdgeList carries no point coordinates"
-                if el is not None else "")
-        raise ValueError(
-            f"backend {backend!r} clusters raw points (it never builds the "
-            f"global similarity matrix); pass an (N, d) array{hint}")
-    if cfg.stop == "converged" and not spec.supports_early_stop:
-        raise ValueError(
-            f"backend {backend!r} runs a fixed distributed sweep schedule "
-            "and does not support stop='converged'; use stop='fixed' or a "
-            "dense backend")
-    if cfg.preseed == "graph":
-        if backend == "graph_affinity":
+                f"backend {backend!r} clusters raw points (it never builds "
+                "the global similarity matrix); pass an (N, d) "
+                f"array{hint}")
+        if cfg.stop == "converged" and not spec.supports_early_stop:
             raise ValueError(
-                "preseed='graph' seeds a HAP backend's preferences with a "
-                "graph pass; backend='graph_affinity' IS the graph pass — "
-                "drop one of the two")
-        if x is None:
-            raise ValueError(
-                "preseed='graph' re-derives preferences from the top-k "
-                "graph the engine builds; it requires (N, d) point input")
-        if spec.needs_points:
-            raise ValueError(
-                f"backend {backend!r} does not consume a per-point "
-                "preference array, which is what preseed='graph' "
-                "produces; use a dense or dense_topk backend")
+                f"backend {backend!r} runs a fixed distributed sweep schedule "
+                "and does not support stop='converged'; use stop='fixed' or a "
+                "dense backend")
+        if cfg.preseed == "graph":
+            if backend == "graph_affinity":
+                raise ValueError(
+                    "preseed='graph' seeds a HAP backend's preferences with a "
+                    "graph pass; backend='graph_affinity' IS the graph pass — "
+                    "drop one of the two")
+            if x is None:
+                raise ValueError(
+                    "preseed='graph' re-derives preferences from the top-k "
+                    "graph the engine builds; it requires (N, d) point input")
+            if spec.needs_points:
+                raise ValueError(
+                    f"backend {backend!r} does not consume a per-point "
+                    "preference array, which is what preseed='graph' "
+                    "produces; use a dense or dense_topk backend")
 
     if el is not None and spec.accepts_edges:
         raw = spec.run(el, cfg)
@@ -336,18 +348,19 @@ def finalize_raw(raw: RawBackendResult, n: int, backend: str) -> SolveResult:
 
 def _finalize(raw: RawBackendResult, n: int, backend: str) -> SolveResult:
     """Strip padding dummies, canonicalize, relabel, count clusters."""
-    e = raw.exemplars
-    if isinstance(e, torch.Tensor):
-        e = e.cpu().numpy()
-    e = canonicalize_levels(np.asarray(e)[:, :n])
-    levels = e.shape[0]
-    labels = np.zeros_like(e, dtype=np.int32)
-    counts = np.zeros((levels,), np.int32)
-    for l in range(levels):
-        labels[l], counts[l] = dense_labels(e[l])
-    trace = (np.asarray(raw.trace, dtype=np.int32) if raw.trace is not None
-             else np.zeros((0,), np.int32))
-    return SolveResult(
-        exemplars=e.astype(np.int32), n_clusters=counts, labels=labels,
-        levels=levels, n=n, backend=backend, n_sweeps=int(raw.n_sweeps),
-        converged=raw.converged, trace=trace, state=raw.state)
+    with obs.span("finalize"):
+        e = raw.exemplars
+        if isinstance(e, torch.Tensor):
+            e = obs.to_host(e, "finalize").numpy()
+        e = canonicalize_levels(np.asarray(e)[:, :n])
+        levels = e.shape[0]
+        labels = np.zeros_like(e, dtype=np.int32)
+        counts = np.zeros((levels,), np.int32)
+        for l in range(levels):
+            labels[l], counts[l] = dense_labels(e[l])
+        trace = (np.asarray(raw.trace, dtype=np.int32) if raw.trace is not None
+                 else np.zeros((0,), np.int32))
+        return SolveResult(
+            exemplars=e.astype(np.int32), n_clusters=counts, labels=labels,
+            levels=levels, n=n, backend=backend, n_sweeps=int(raw.n_sweeps),
+            converged=raw.converged, trace=trace, state=raw.state)

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import hap
 from repro_torch.core.preferences import make_preferences, random_preference
 from repro_torch.core.similarity import pairwise_similarity
@@ -83,7 +84,8 @@ def sampled_preferences(x: torch.Tensor, strategy: str, metric: str,
     device."""
     n = x.shape[0]
     sel = torch.randperm(n, generator=generator)[:PREF_SAMPLE]
-    s = pairwise_similarity(x[sel.to(x.device)], metric=metric)
+    sel = obs.to_device(sel, x.device, "preference_sample")
+    s = pairwise_similarity(x[sel], metric=metric)
     return make_preferences(s, strategy)[0].expand(n).clone()
 
 
@@ -135,15 +137,18 @@ def build_from_points(x: torch.Tensor, k: int, levels: int, *,
     x = x.float()
     n = x.shape[0]
     cfg = (config or SolveConfig()).replace(metric=metric)
-    vals, idx = build_topk_similarity(x, k, cfg)
-    if (isinstance(preference, str)
-            and preference in ("median", "range_mid")
-            and n > PREF_EXACT_N and k < n - 1):
-        pref = sampled_preferences(x, preference, metric,
-                                   sample_generator(seed))
-    else:
-        pref = topk_preferences(vals, preference,
-                                generator=torch.Generator().manual_seed(seed))
+    with obs.span("build"):
+        vals, idx = build_topk_similarity(x, k, cfg)
+    with obs.span("preference"):
+        if (isinstance(preference, str)
+                and preference in ("median", "range_mid")
+                and n > PREF_EXACT_N and k < n - 1):
+            pref = sampled_preferences(x, preference, metric,
+                                       sample_generator(seed))
+        else:
+            pref = topk_preferences(
+                vals, preference,
+                generator=torch.Generator().manual_seed(seed))
     if cfg.preseed == "graph":
         # seed from a Borůvka pass over the edges just built — the graph
         # pass reuses (vals, idx), so preseeding never doubles the build

@@ -40,6 +40,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     availability, flash_attention, launch_counts, ops, reset_launch_counts,
     responsibility, similarity, topk_build, topk_ops,
@@ -279,10 +280,11 @@ def _dup_heavy_edges(rng, n, weights=(1.0, 2.0, 3.0)):
     (120, 1, 3), (2000, 1, 2), (5000, 40, 1), (30000, 1, 3)])
 def test_boruvka_on_cuda_equals_the_cpu(dev, n, target, levels):
     vals, idx = _dup_heavy_edges(_gen(n), n).to_topk()
+    obs.reset_counters("host_copies.graph_affinity")
     got = affinity.run_graph_affinity(
         torch.from_numpy(vals).to(dev), torch.from_numpy(idx).to(dev),
         levels=levels, target=target)
-    reads = affinity.host_reads
+    reads = obs.counters()["host_copies.graph_affinity"]
     want = affinity.run_graph_affinity(
         torch.from_numpy(vals), torch.from_numpy(idx), levels=levels,
         target=target)

@@ -38,6 +38,7 @@ from repro.graph.edges import inert_fill as j_inert_fill  # noqa: E402
 from repro.solver import SolveConfig as JConfig  # noqa: E402
 from repro.solver import solve as j_solve  # noqa: E402
 from repro.solver.topk_build import build_topk_similarity as j_build  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.core.assignments import flatten_pointers  # noqa: E402
 from repro_torch.graph import EdgeList  # noqa: E402
 from repro_torch.graph import affinity  # noqa: E402
@@ -244,6 +245,7 @@ def test_boruvka_equals_reference_and_oracle(graph, target, max_rounds,
     el, jel = _pair(GRAPHS[graph]())
     canon = el.canonical()
     vals, idx = canon.to_topk()
+    obs.reset_counters("host_copies.graph_affinity")
     hist, r, conv, trace = affinity.run_graph_affinity(
         torch.from_numpy(vals), torch.from_numpy(idx), levels=levels,
         max_rounds=max_rounds, target=target)
@@ -254,7 +256,8 @@ def test_boruvka_equals_reference_and_oracle(graph, target, max_rounds,
     np.testing.assert_array_equal(hist.numpy(), np.asarray(jh))
     assert (r, conv) == (int(jr), bool(jc))
     np.testing.assert_array_equal(trace, np.asarray(jt))
-    assert affinity.host_reads == r             # one stop test a round
+    # one stop test a round
+    assert obs.counters()["host_copies.graph_affinity"] == r
     snaps, rounds, oconv = boruvka_oracle(canon, target, max_rounds)
     # the backend may spend one more round than the oracle, relabeling
     # nothing, to see that nothing is left to hook

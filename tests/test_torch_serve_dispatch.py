@@ -370,11 +370,12 @@ def test_stats_snapshot_is_atomic_under_load(service2w):
 
 # ------------------------------------------------- launch counts and threads
 def test_launch_counter_loses_no_increment_under_threads():
-    """Eight threads count 5,000 launches each through the helper every
-    wrapper uses: the total is exact, and a reset under load leaves the
-    counts consistent."""
+    """Eight threads count 5,000 launches each as every wrapper does
+    (``obs.count("launches.<kernel>")``): the total is exact, and a reset
+    under load leaves the counts consistent."""
+    from repro_torch import obs
     from repro_torch.kernels import (
-        KERNELS, count_launch, launch_counts, reset_launch_counts,
+        KERNELS, launch_counts, reset_launch_counts,
     )
 
     reset_launch_counts()
@@ -384,7 +385,7 @@ def test_launch_counter_loses_no_increment_under_threads():
         start.wait(timeout=30)
         name = KERNELS[i % len(KERNELS)]
         for _ in range(5000):
-            count_launch(name)
+            obs.count("launches." + name)
 
     threads = [threading.Thread(target=hammer, args=(i,), daemon=True)
                for i in range(8)]

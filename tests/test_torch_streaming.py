@@ -31,6 +31,7 @@ from repro.core.similarity import (  # noqa: E402
 )
 from repro.data import gaussian_blobs  # noqa: E402
 from repro.solver import solve as j_solve  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.core import streaming  # noqa: E402
 from repro_torch.core.assignments import canonicalize  # noqa: E402
 from repro_torch.core.metrics import purity  # noqa: E402
@@ -112,11 +113,11 @@ def test_streaming_single_global_exemplar_reassigns_whole_shards():
 
 def test_streaming_labels_are_nearest_exemplar_and_reads_are_counted():
     x, _ = gaussian_blobs(n=500, k=5, seed=10, spread=0.4, box=16.0)
-    streaming.host_reads = 0
+    obs.reset_counters("host_copies.streaming")
     res = streaming.streaming_hap(x, shard_size=128, iterations=60,
                                   pref_scale=0.25)
     # one read per shard, one for the exemplar tier, one for the labels
-    assert streaming.host_reads == 4 + 1 + 1
+    assert obs.counters()["host_copies.streaming"] == 4 + 1 + 1
     labels, _ = streaming.assign_nearest_exemplar(x, res.exemplar_points)
     np.testing.assert_array_equal(labels.numpy(), res.labels)
 
@@ -176,7 +177,7 @@ def test_converged_ap_matches_reference(n, k, seed, max_it, patience):
     s = _ref_stack(x)
     want = j_streaming.converged_ap(s, max_iterations=max_it,
                                     patience=patience, damping=0.7)
-    streaming.host_reads = 0
+    obs.reset_counters("host_copies.streaming")
     got = streaming.converged_ap(torch.from_numpy(np.asarray(s)),
                                  max_iterations=max_it, patience=patience,
                                  damping=0.7)
@@ -184,7 +185,7 @@ def test_converged_ap_matches_reference(n, k, seed, max_it, patience):
                                   np.asarray(want.exemplars))
     assert got.n_iterations == int(want.n_iterations)
     assert got.converged == bool(want.converged)
-    assert streaming.host_reads == got.n_iterations
+    assert obs.counters()["host_copies.streaming"] == got.n_iterations
 
 
 def test_converged_ap_stops_early_with_good_clusters():

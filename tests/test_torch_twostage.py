@@ -14,7 +14,7 @@ the JAX reference and against the port's reference scan.
   between the reference's own two builds for neg_euclidean).
 * Small ``chunk``, ``round_chunks``, ``max_rounds`` and
   ``residual_chunks`` make the bootstrap, the capped rounds and the
-  residual slabs all run (checked through ``host_syncs``).
+  residual slabs all run (checked through ``host_copies.twostage_build``).
 """
 import pytest
 
@@ -29,6 +29,7 @@ from repro.sharding import partitioning as j_part  # noqa: E402
 from repro.solver.topk_build import (  # noqa: E402
     resolve_build_backend as j_resolve_build,
 )
+from repro_torch import obs  # noqa: E402
 from repro_torch.kernels import topk_similarity as p_sim  # noqa: E402
 from repro_torch.sharding import partitioning as p_part  # noqa: E402
 from repro_torch.solver import solve  # noqa: E402
@@ -98,13 +99,14 @@ def test_twostage_matches_scan_and_reference(metric, kind, monkeypatch):
     select = p_sim.topk_select_exact
     monkeypatch.setattr(p_sim, "topk_select_exact",
                         lambda *a: merges.append(1) or select(*a))
-    p_sim.host_syncs = 0
+    obs.reset_counters("host_copies.twostage_build")
     got = p_sim.topk_similarity_twostage(torch.from_numpy(x), k,
                                          metric=metric, **SMALL)
     # 8 row blocks: the kd copy, then per block at most 2 rounds and 16
     # residual slabs read on the host; the merges past the bootstrap and
     # the 2 rounds of every block are residual slabs
-    assert 8 * 16 < p_sim.host_syncs <= 1 + 8 * (2 + 16)
+    syncs = obs.counters()["host_copies.twostage_build"]
+    assert 8 * 16 < syncs <= 1 + 8 * (2 + 16)
     assert len(merges) > 8 * 3
     scan = p_sim.topk_similarity(torch.from_numpy(x), k, metric=metric,
                                  block_rows=300, block_cols=700)
