@@ -16,6 +16,10 @@ kernels   each kernel against its plain PyTorch version on the card, at the
           bit against the plain version summed in the kernel's order, and
           on inputs where both branches of Eq 2.2 occur off the diagonal;
           kernel, plain and bound times
+median    the median-select kernel on the Mandrill's 10,609 x 10,609
+          similarities and on the sampled median's 2,048 x 2,048 subsample
+          of the blobs: its two order statistics equal ``torch.kthvalue``'s
+          under ``==``; kernel, bound and the two ``kthvalue`` calls' times
 topk      the fused top-k build (``topk_build``) against its plain versions
           on the card: the N = 200,000 blobs of ``bench_scaling.py`` (d =
           2, k = 64) bit for bit against ``in_kernel_order`` and within
@@ -547,6 +551,49 @@ def run_kernels(x_pixels) -> dict:
     return summary
 
 
+# ------------------------------------------------------------ median select
+def run_median_select(x_pixels, blobs) -> dict:
+    """The median-select kernel at the shapes the main paths give it: the
+    Mandrill's off-diagonal similarities (the dense median) and the
+    similarities of the 2,048 blobs the default top-k solve subsamples
+    (the sampled median). The two ``kthvalue`` calls are its plain version
+    and the library's selection alike."""
+    from repro_torch.core import pairwise_similarity
+    from repro_torch.kernels import median_select, ref
+    from repro_torch.solver import topk
+
+    sel = torch.randperm(blobs.shape[0], generator=topk.sample_generator(0))
+    sub = torch.from_numpy(blobs)[sel[:topk.PREF_SAMPLE]].to(DEVICE)
+    out = {}
+    for label, s in (("mandrill", pairwise_similarity(x_pixels)),
+                     ("blobs_subsample", pairwise_similarity(sub))):
+        n = s.shape[0]
+        got = median_select.middle_pair(s, skip_diagonal=True)
+        want = ref.middle_pair(s, skip_diagonal=True)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        k_ms = cuda_ms(lambda: median_select.middle_pair(
+            s, skip_diagonal=True), iters=20)
+        p_ms = cuda_ms(lambda: ref.middle_pair(s, skip_diagonal=True),
+                       iters=3, warmup=1)
+        b_ms, b_by = bound_ms(4.0 * (n * n - n), 0.0)
+        line = {"phase": "median", "case": label, "n": n,
+                "lo_hi_mean": got.tolist(), "equal_kthvalue": equal,
+                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": p_ms,
+                "library": "two torch.kthvalue calls", "bound_ms": b_ms,
+                "bound_by": b_by}
+        emit(line)
+        check(equal, f"median_select {label}: {got.tolist()} against "
+              f"kthvalue's {want.tolist()}")
+        out[label] = line
+    m = out["mandrill"]
+    return {"ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"],
+            "subsample_ms": out["blobs_subsample"]["kernel_ms"],
+            "subsample_library_ms": out["blobs_subsample"]["library_ms"]}
+
+
 # -------------------------------------------------------------------- solve
 def run_solve(x) -> dict:
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -580,13 +627,15 @@ def run_solve(x) -> dict:
                 sweeps = r.levels * r.n_sweeps
                 check(counts == {"similarity": 1, "responsibility": sweeps,
                                  "availability": sweeps, "topk_build": 0,
-                                 "flash_attention": 0},
+                                 "flash_attention": 0, "median_select": 1},
                       f"dense_fused {stop}: launches {counts}, expected "
-                      f"similarity 1 and {sweeps} per update")
+                      f"similarity 1, {sweeps} per update and one median")
                 if stop == "fixed":
                     launches = counts        # the main path's run
             else:
-                check(not any(counts.values()),
+                # the median preference is the one kernel both routes share
+                check(counts == {**dict.fromkeys(counts, 0),
+                                 "median_select": 1},
                       f"dense_parallel launched kernels: {counts}")
         f, p = res["dense_fused"], res["dense_parallel"]
         mismatch = float((f.exemplars != p.exemplars).mean())
@@ -796,7 +845,7 @@ def run_solve_topk(blobs):
           "launches": launches})
     check(launches == {"similarity": 0, "responsibility": 0,
                        "availability": 0, "topk_build": 1,
-                       "flash_attention": 0},
+                       "flash_attention": 0, "median_select": 1},
           f"dense_topk launches {launches}")
     check(res.exemplars.shape == (res.levels, n)
           and res.exemplars.min() >= 0 and res.exemplars.max() < n,
@@ -1650,8 +1699,9 @@ def run_serve(smi: str) -> dict:
           "n_clusters": res.solve.n_clusters.tolist(),
           "stream": svc.stream_info("big"), "launches": launches,
           "decisions_equal": eq})
+    # a sampled median for the solve and one for the stream's preference
     check(res.solve.backend == "dense_topk" and launches["topk_build"] == 1
-          and sum(launches.values()) == 1,
+          and launches["median_select"] == 2 and sum(launches.values()) == 3,
           f"serve overflow dense_topk: {res.solve.backend}, {launches}")
     check(all(eq.values()), f"serve overflow dense_topk differs: {eq}")
 
@@ -1674,7 +1724,8 @@ def run_serve(smi: str) -> dict:
           "decisions_equal_direct": same})
     check(res.solve.backend == "coarsen"
           and stats["global_backend"] == "dense_topk"
-          and launches["topk_build"] == 1 and sum(launches.values()) == 1,
+          and launches["topk_build"] == 1 and launches["median_select"] == 1
+          and sum(launches.values()) == 2,
           f"serve overflow coarsen: {stats}, {launches}")
     check(same, "serve overflow coarsen differs from the direct solve")
     snap = svc.snapshot()
@@ -1859,7 +1910,7 @@ def run_attention() -> dict:
         torch.cuda.synchronize()
         check(counts == {"similarity": 0, "responsibility": 0,
                          "availability": 0, "topk_build": 0,
-                         "flash_attention": 1},
+                         "flash_attention": 1, "median_select": 0},
               f"attention {name}: launches {counts}")
         check(got.dtype == q.dtype and got.shape == q.shape
               and bool(torch.isfinite(got).all()),
@@ -1976,8 +2027,10 @@ def run_solve_twostage(blobs, pixels) -> None:
           "n_clusters": res.n_clusters.tolist(), "host_syncs": syncs,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": launches})
-    # neither the two-stage build nor the sparse sweep has a kernel
-    check(not any(launches.values()), f"launches {launches}")
+    # neither the two-stage build nor the sparse sweep has a kernel; the
+    # sampled median takes its own
+    check(launches == {**dict.fromkeys(launches, 0), "median_select": 1},
+          f"launches {launches}")
     check(np.array_equal(res.exemplars, first.exemplars)
           and np.array_equal(res.trace, first.trace),
           "two-stage solve: a second solve gave other decisions")
@@ -2518,9 +2571,10 @@ def run_solve_distributed(pixels, blobs, graph_one, init_centers) -> dict:
                                   for r in ranks]
     for name in ("topk_solve", "topk_build_sharded"):
         for r in ranks:
+            # each rank takes the sampled median once
             counts = r[name]["launches"]
-            check(counts["similarity"] > 0
-                  and sum(counts.values()) == counts["similarity"],
+            check(counts["similarity"] > 0 and counts["median_select"] == 1
+                  and sum(counts.values()) == counts["similarity"] + 1,
                   f"{name}: rank {r['rank']} launches {counts}")
     del ranks
 
@@ -4089,6 +4143,7 @@ def main() -> int:
     blobs, truth = gaussian_blobs(n=N_BLOBS, k=16, seed=0, spread=0.5)
     x = torch.from_numpy(pixels).to(DEVICE)
     summary = run_kernels(x)
+    summary["median_select"] = run_median_select(x, blobs)
     del x
     clock("kernels")
     summary["topk_build"] = run_topk_kernel(
@@ -4145,11 +4200,13 @@ def main() -> int:
                           ("responsibility", "responsibility.py:71"),
                           ("availability", "availability.py:68"),
                           ("topk_build", "topk_build_fused.py:94"),
-                          ("flash_attention", "flash_attention.py:77")):
+                          ("flash_attention", "flash_attention.py:77"),
+                          ("median_select", None)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": f"src/repro/kernels/{fn_line}",
+            "replaces": f"src/repro/kernels/{fn_line}" if fn_line else
+            "none: the reference takes the median with jnp.sort",
             "launches": launches[name], **summary[name],
             "lm_serve_launches": lm_launches[name],
             "lm_train_launches": train_launches[name],

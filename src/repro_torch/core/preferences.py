@@ -11,37 +11,33 @@ from typing import Literal, Optional
 import torch
 
 from repro_torch import obs
+from repro_torch.kernels import median_select
+from repro_torch.kernels.ref import off_diagonal
 
 Strategy = Literal["median", "range_mid", "random", "constant"]
 
 
-def _off_diagonal(s: torch.Tensor) -> torch.Tensor:
-    """The N*N - N off-diagonal entries, row-major, as a 1-D tensor.
-
-    Dropping the first element of the flattened matrix leaves the diagonal
-    at the end of every (N + 1)-wide row; no boolean mask is built.
-    """
-    n = s.shape[-1]
-    return s.reshape(-1)[1:].reshape(n - 1, n + 1)[:, :-1].reshape(-1)
+def middle_pair_preference(vals: torch.Tensor, n: int, *,
+                           skip_diagonal: bool) -> torch.Tensor:
+    """The median preference over a 2-D ``vals``, broadcast to (n,): the
+    mean of its two middle order statistics (of an even count the two
+    middle values; ``torch.median`` would return the lower one), over its
+    off-diagonal entries when ``skip_diagonal`` (a dense S) or every value
+    (the stored top-k values). One exact selection, the median-select
+    kernel on the card."""
+    mean = median_select.middle_pair(vals, skip_diagonal=skip_diagonal)[2]
+    return mean.expand(n).clone()
 
 
 def median_preference(s: torch.Tensor) -> torch.Tensor:
-    """Median of off-diagonal similarities (Frey & Dueck default): the mean
-    of the two middle order statistics of the N*N - N entries (an even
-    count; ``torch.median`` would return the lower one). Two ``kthvalue``
-    selections, no sort and no sort indices."""
-    n = s.shape[-1]
-    vals = _off_diagonal(s)
-    half = (n * n - n) // 2
-    lo = torch.kthvalue(vals, half).values
-    hi = torch.kthvalue(vals, half + 1).values
-    return (0.5 * (lo + hi)).expand(n).clone()
+    """Median of off-diagonal similarities (Frey & Dueck default)."""
+    return middle_pair_preference(s, s.shape[-1], skip_diagonal=True)
 
 
 def range_mid_preference(s: torch.Tensor) -> torch.Tensor:
     """(min + max)/2 of off-diagonal similarities (Givoni et al.)."""
     n = s.shape[-1]
-    vals = _off_diagonal(s)
+    vals = off_diagonal(s)
     return (0.5 * (vals.amin() + vals.amax())).expand(n).clone()
 
 

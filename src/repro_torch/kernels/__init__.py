@@ -15,7 +15,7 @@ import torch
 from repro_torch import obs
 
 KERNELS = ("similarity", "responsibility", "availability", "topk_build",
-           "flash_attention")
+           "flash_attention", "median_select")
 
 
 def launch_counts() -> dict[str, int]:

@@ -53,6 +53,9 @@ _SIGNATURES = {
     "repro_flash_attention": ([_P, _P, _P, _P, _I64, _I64, _I64,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
                               ctypes.c_int),
+    "repro_median_select": ([_P, _I64, _I64, ctypes.c_int, _I64, _I64,
+                             ctypes.c_int, _P, _P, _P], ctypes.c_int),
+    "repro_median_select_scratch": ([], _I64),
     "repro_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

@@ -87,3 +87,76 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     p = torch.where(torch.isnan(p), 0.0, p)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def off_diagonal(s: torch.Tensor) -> torch.Tensor:
+    """The N*N - N off-diagonal entries of a square ``s``, row-major, 1-D.
+
+    Dropping the first element of the flattened matrix leaves the diagonal
+    at the end of every (N + 1)-wide row; no boolean mask is built.
+    """
+    n = s.shape[-1]
+    return s.reshape(-1)[1:].reshape(n - 1, n + 1)[:, :-1].reshape(-1)
+
+
+def middle_pair(x: torch.Tensor, *, skip_diagonal: bool) -> torch.Tensor:
+    """Oracle for the median-select kernel: (lo, hi, 0.5 * (lo + hi)) of
+    the values of ``x`` (its off-diagonal entries when ``skip_diagonal``),
+    lo and hi the two middle order statistics by two ``kthvalue``
+    selections (an even count's two middle values, an odd count's middle
+    one twice)."""
+    vals = off_diagonal(x) if skip_diagonal else x.reshape(-1)
+    cnt = vals.numel()
+    lo = torch.kthvalue(vals, (cnt - 1) // 2 + 1).values
+    hi = torch.kthvalue(vals, cnt // 2 + 1).values
+    return torch.stack([lo, hi, 0.5 * (lo + hi)])
+
+
+#: The median-select kernel's digits, most significant first (bits).
+SELECT_DIGITS = (11, 11, 10)
+
+
+def radix_keys(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> uint32 keys (held in int64) whose order is the order
+    ``torch.kthvalue`` ranks by: -0.0 as +0.0, every NaN above +inf."""
+    b = v.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = torch.where(b == 0x80000000, 0, b)
+    key = torch.where(b >= 0x80000000, ~b & 0xFFFFFFFF, b | 0x80000000)
+    return torch.where(torch.isnan(v), 0xFFFFFFFF, key)
+
+
+def key_values(keys: torch.Tensor) -> torch.Tensor:
+    """The float32 values of ``radix_keys``' keys (NaN for a NaN's key)."""
+    b = torch.where(keys >= 0x80000000, keys & 0x7FFFFFFF, ~keys & 0xFFFFFFFF)
+    return ((b ^ 0x80000000) - 0x80000000).to(torch.int32).view(torch.float32)
+
+
+def middle_pair_by_digits(x: torch.Tensor, *, skip_diagonal: bool):
+    """The median-select kernel's walk in plain PyTorch: (lo, hi, mean).
+
+    Each digit of ``SELECT_DIGITS`` is one pass: the histogram of the
+    digit over the keys that match a rank's prefix so far (one histogram a
+    distinct prefix, as the kernel keeps one a rank once the two differ),
+    then the bin holding each rank extends its prefix, and the rank left
+    inside the bin carries on. The mean rounds as ``middle_pair``'s.
+    """
+    vals = off_diagonal(x) if skip_diagonal else x.reshape(-1)
+    keys = radix_keys(vals)
+    cnt = keys.numel()
+    ranks, prefixes, done = [(cnt - 1) // 2, cnt // 2], [0, 0], 0
+    for bits in SELECT_DIGITS:
+        shift = 32 - done - bits
+        hists = {}
+        for t in (0, 1):
+            p = prefixes[t]
+            if p not in hists:
+                mine = keys[(keys >> (shift + bits)) == p]
+                hists[p] = torch.bincount((mine >> shift) & ((1 << bits) - 1),
+                                          minlength=1 << bits).cumsum(0)
+            upto = hists[p]
+            b = int(torch.searchsorted(upto, ranks[t], right=True))
+            ranks[t] -= int(upto[b - 1]) if b else 0
+            prefixes[t] = (p << bits) | b
+        done += bits
+    lo, hi = key_values(torch.tensor(prefixes, dtype=torch.int64))
+    return torch.stack([lo, hi, 0.5 * (lo + hi)])

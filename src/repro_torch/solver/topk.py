@@ -28,7 +28,9 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import hap
-from repro_torch.core.preferences import make_preferences, random_preference
+from repro_torch.core.preferences import (
+    make_preferences, middle_pair_preference, random_preference,
+)
 from repro_torch.core.similarity import pairwise_similarity
 from repro_torch.kernels.topk_ops import (
     alpha_topk, assignments_topk, c_topk, incoming_edges, phi_topk, rho_topk,
@@ -96,7 +98,7 @@ def topk_preferences(vals: torch.Tensor, strategy, *,
     k = N - 1 the stored multiset is the whole off-diagonal set, so
     ``median``/``range_mid`` equal the dense preferences; the median is
     the mean of the two middle order statistics."""
-    n, k = vals.shape
+    n = vals.shape[0]
     if strategy is None:
         # dense-path convention: an untouched diagonal is 0 (max pref)
         return torch.zeros(n, dtype=vals.dtype, device=vals.device)
@@ -104,10 +106,7 @@ def topk_preferences(vals: torch.Tensor, strategy, *,
         return torch.as_tensor(strategy, dtype=vals.dtype,
                                device=vals.device).expand(n).clone()
     if strategy == "median":
-        flat, cnt = vals.reshape(-1), n * k
-        lo = torch.kthvalue(flat, (cnt - 1) // 2 + 1).values
-        hi = torch.kthvalue(flat, cnt // 2 + 1).values
-        return (0.5 * (lo + hi)).expand(n).clone()
+        return middle_pair_preference(vals, n, skip_diagonal=False)
     if strategy == "range_mid":
         return (0.5 * (vals.amin() + vals.amax())).expand(n).clone()
     if strategy == "random":

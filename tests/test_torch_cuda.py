@@ -40,10 +40,12 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+import _median_cases  # noqa: E402
+
 from repro_torch import obs  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    availability, flash_attention, launch_counts, ops, reset_launch_counts,
-    responsibility, similarity, topk_build, topk_ops,
+    availability, flash_attention, launch_counts, median_select, ops, ref,
+    reset_launch_counts, responsibility, similarity, topk_build, topk_ops,
 )
 from repro_torch.kernels.topk_similarity import (  # noqa: E402
     topk_similarity, topk_similarity_twostage,
@@ -180,7 +182,7 @@ def test_fused_solve_goes_through_the_kernels(dev):
     plain = solve(x, backend="dense_parallel", max_iterations=20)
     assert counts == {"similarity": 1, "responsibility": 3 * 20,
                       "availability": 3 * 20, "topk_build": 0,
-                      "flash_attention": 0}
+                      "flash_attention": 0, "median_select": 1}
     np.testing.assert_array_equal(fused.n_clusters, plain.n_clusters)
     assert (fused.exemplars != plain.exemplars).mean() <= 1e-3
 
@@ -260,7 +262,7 @@ def test_topk_solve_goes_through_the_kernel(dev):
     assert fused.backend == "dense_topk"
     assert counts == {"similarity": 0, "responsibility": 0,
                       "availability": 0, "topk_build": 1,
-                      "flash_attention": 0}
+                      "flash_attention": 0, "median_select": 1}
     ref = solve(x, max_iterations=20, build="reference")
     np.testing.assert_array_equal(fused.exemplars, ref.exemplars)
     np.testing.assert_array_equal(fused.trace, ref.trace)
@@ -443,6 +445,91 @@ def test_twostage_bit_identical_to_the_scan_on_cuda(dev, metric, kind):
         assert torch.equal(got[1].cpu(), cpu[1])
 
 
+# ------------------------------------------------------------ median select
+def _kthvalue_pair(x, skip):
+    """The two middle order statistics by ``torch.kthvalue`` on the card."""
+    vals = ref.off_diagonal(x) if skip else x.reshape(-1)
+    cnt = vals.numel()
+    return [torch.kthvalue(vals, k).values
+            for k in ((cnt - 1) // 2 + 1, cnt // 2 + 1)]
+
+
+def _assert_select_equals_kthvalue(x, skip):
+    got = median_select.middle_pair(x, skip_diagonal=skip)
+    lo, hi = _kthvalue_pair(x, skip)
+    torch.cuda.synchronize()
+    assert got[0] == lo and got[1] == hi
+    assert got[2] == 0.5 * (lo + hi)
+    assert torch.equal(got[2], ref.middle_pair(x, skip_diagonal=skip)[2])
+
+
+@pytest.mark.parametrize("layout", [*_median_cases.LAYOUTS,
+                                    ((2048, 2048), True), ((509, 65), False)],
+                         ids=lambda lay: f"{lay[0][0]}x{lay[0][1]}"
+                         f"{'-offdiag' if lay[1] else ''}")
+@pytest.mark.parametrize("kind", _median_cases.KINDS)
+def test_median_select_equals_kthvalue(dev, kind, layout):
+    """The kernel's two order statistics equal ``torch.kthvalue``'s under
+    ``==`` and its mean the plain version's, on every input family, from
+    two values up to the sampled median's 2,048 x 2,048 subsample."""
+    shape, skip = layout
+    x = torch.from_numpy(_median_cases.values(kind, shape, skip,
+                                              seed=sum(shape))).to(dev)
+    _assert_select_equals_kthvalue(x, skip)
+
+
+def test_median_select_on_the_mandrill(dev):
+    """At the dense cell's size: the 10,609 x 10,609 similarities of the
+    Mandrill-like image, 112.5 M off-diagonal values."""
+    from repro_torch.core import pairwise_similarity
+    from repro_torch.data import image_to_points, mandrill_like_image
+
+    x = torch.from_numpy(image_to_points(mandrill_like_image(103, 103)))
+    s = pairwise_similarity(x.to(dev))
+    _assert_select_equals_kthvalue(s, True)
+
+
+def test_median_select_skips_the_diagonal(dev):
+    """A diagonal of +inf and one of -inf give the same answer, that of
+    the off-diagonal entries alone."""
+    rng = _gen(5)
+    x = torch.from_numpy(rng.standard_normal((301, 301)).astype(np.float32))
+    got = []
+    for fill in (np.inf, -np.inf):
+        y = x.clone()
+        y.fill_diagonal_(fill)
+        got.append(median_select.middle_pair(y.to(dev), skip_diagonal=True))
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0].cpu(), ref.middle_pair(x, skip_diagonal=True))
+
+
+@pytest.mark.parametrize("preference,launches", [("median", 1),
+                                                 ("random", 0)])
+def test_median_select_launches_once_per_median_solve(dev, preference,
+                                                      launches):
+    x = _gen(8).integers(0, 256, (500, 3)).astype(np.float32)
+    reset_launch_counts()
+    solve(x, backend="dense_fused", max_iterations=5, preference=preference)
+    assert launch_counts()["median_select"] == launches
+
+
+def test_median_select_adds_no_host_sync(dev):
+    """Under ``set_sync_debug_mode("error")`` the median preference raises
+    nothing: no value comes to the host."""
+    from repro_torch.core.preferences import median_preference
+
+    s = -torch.from_numpy(_gen(3).random((700, 700)).astype(np.float32))
+    s = s.to(dev)
+    median_preference(s)                   # the library is built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pref = median_preference(s)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(pref.cpu(), median_preference(s.cpu()))
+
+
 # ------------------------------------------------------- the cluster service
 SERVE_KW = dict(stop="converged", max_iterations=80, damping=0.6, levels=2,
                 preference="median")
@@ -518,9 +605,10 @@ def test_service_overflow_launches_the_topk_kernel_once(dev):
     x, _ = gaussian_blobs(n=6000, k=8, seed=1, spread=0.5)
     reset_launch_counts()
     res = svc.solve_sync(x, stream="big")
+    # one sampled median for the solve, one for the stream's preference
     assert launch_counts() == {"similarity": 0, "responsibility": 0,
                                "availability": 0, "topk_build": 1,
-                               "flash_attention": 0}
+                               "flash_attention": 0, "median_select": 2}
     assert res.bucket is None and res.solve.backend == "dense_topk"
     direct = solve(x, cfg.replace(backend="dense_topk", k=64,
                                   input_kind="points"))

@@ -25,9 +25,11 @@ from repro.kernels.responsibility import responsibility_pallas  # noqa: E402
 from repro.kernels.similarity import similarity_pallas  # noqa: E402
 from repro_torch.core.affinity import affinity_propagation  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    availability, launch_counts, ops, ref, reset_launch_counts,
-    responsibility, similarity, topk_build,
+    availability, launch_counts, median_select, ops, ref,
+    reset_launch_counts, responsibility, similarity, topk_build,
 )
+
+import _median_cases  # noqa: E402
 
 SHAPES = [(32, 32), (96, 64), (128, 128), (130, 70), (256, 256), (300, 200)]
 AV_SHAPES = [(32, 32), (70, 70), (128, 128), (130, 130), (256, 256)]
@@ -182,9 +184,10 @@ def test_wrappers_take_plain_version_on_cpu_without_counting(rng):
     ops.availability(_t(r_old), _t(tau), _t(tau), _t(a), lam=0.5)
     topk_build.topk_similarity_fused(_t(s[:, :3]), 5)
     ops.flash_attention(_t(s[None]), _t(a[None]), _t(r_old[None]))
+    median_select.middle_pair(_t(s), skip_diagonal=True)
     assert launch_counts() == {"similarity": 0, "responsibility": 0,
                                "availability": 0, "topk_build": 0,
-                               "flash_attention": 0}
+                               "flash_attention": 0, "median_select": 0}
 
 
 @pytest.mark.parametrize("call", [
@@ -192,6 +195,7 @@ def test_wrappers_take_plain_version_on_cpu_without_counting(rng):
     lambda t: responsibility.responsibility(t, t, t[0], t, 0.5),
     lambda t: availability.availability(t, t[0], t[0], t, 0.5),
     lambda t: topk_build.topk_similarity_fused(t, 5),
+    lambda t: median_select.middle_pair(t, skip_diagonal=True),
 ])
 def test_wrappers_never_fall_back_off_the_cpu(call):
     """A tensor on another device gets the kernel or an error, never the
@@ -202,6 +206,44 @@ def test_wrappers_never_fall_back_off_the_cpu(call):
         responsibility.responsibility(torch.zeros(4, 4),
                                       torch.zeros(4, 4, device="meta"),
                                       torch.zeros(4), torch.zeros(4, 4), 0.5)
+
+
+@pytest.mark.parametrize("layout", _median_cases.LAYOUTS,
+                         ids=lambda lay: f"{lay[0][0]}x{lay[0][1]}"
+                         f"{'-offdiag' if lay[1] else ''}")
+@pytest.mark.parametrize("kind", _median_cases.KINDS)
+def test_median_select_digit_walk_matches_kthvalue(kind, layout):
+    """The median-select kernel's digit walk in plain PyTorch (its keys,
+    per-digit histograms, two-rank narrowing and mean) picks the two
+    middle order statistics ``torch.kthvalue`` picks, equal under ``==``,
+    and the mean the plain version (today's two ``kthvalue`` calls)
+    gives, which the wrapper takes on the CPU."""
+    shape, skip = layout
+    x = _t(_median_cases.values(kind, shape, skip, seed=sum(shape)))
+    vals = ref.off_diagonal(x) if skip else x.reshape(-1)
+    cnt = vals.numel()
+    want = [torch.kthvalue(vals, k).values
+            for k in ((cnt - 1) // 2 + 1, cnt // 2 + 1)]
+    got = ref.middle_pair_by_digits(x, skip_diagonal=skip)
+    assert got[0] == want[0] and got[1] == want[1]
+    plain = median_select.middle_pair(x, skip_diagonal=skip)
+    assert torch.equal(got, plain)
+    assert plain[2] == 0.5 * (want[0] + want[1])
+
+
+def test_median_select_keys_order_as_kthvalue():
+    """The key map is monotone over every ordered class of float32 and
+    maps back to the value (-0.0 to +0.0, every NaN to a NaN above
+    +inf)."""
+    v = torch.tensor([-np.inf, -3.4e38, -1.0, -1e-45, -0.0, 0.0, 1e-45,
+                      1.0, 3.4e38, np.inf, np.nan, -np.nan])
+    keys = ref.radix_keys(v)
+    assert keys.tolist() == sorted(keys.tolist())
+    assert len(set(keys[:10].tolist())) == 9
+    assert keys[4] == keys[5] and keys[10] == keys[11] == 0xFFFFFFFF
+    back = ref.key_values(keys)
+    assert torch.equal(back[:10], v[:10]) and bool(back[10:].isnan().all())
+    assert str(float(back[4])) == "0.0"
 
 
 def test_hap_iteration_kernels_matches_reference(rng):

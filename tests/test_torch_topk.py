@@ -415,6 +415,19 @@ def test_stored_median_is_mean_of_middle_order_statistics():
         topk.topk_preferences(vals, "median").numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("shape", [(3, 1), (5, 3), (7, 5), (9, 9), (6, 4)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_stored_median_odd_and_even_counts_match_reference(shape, ties):
+    """Odd counts (the middle value twice) and even ones, with and without
+    ties, as the reference's sort gives them."""
+    rng = np.random.default_rng(sum(shape) + ties)
+    vals = (-rng.integers(0, 4, shape) if ties
+            else rng.standard_normal(shape)).astype(np.float32)
+    got = topk.topk_preferences(torch.from_numpy(vals), "median")
+    want = j_topk.topk_preferences(jnp.asarray(vals), "median")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # ------------------------------------------------------------- validation
 @pytest.mark.parametrize("name", ["auto", "reference", "fused", "sharded",
                                   "twostage"])
