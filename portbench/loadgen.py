@@ -3,10 +3,12 @@ loop with one caller.
 
 The pool holds ``mix["pool"]`` inputs, input i drawn by the configuration's
 generator (``portbench/datasets/<kind>.py``) from ``SeedSequence([seed,
-i])``, so every seed gives the same sizes and only other values. The
+i])``, so every seed gives the same sizes and only other values. Where
+the parameters hold ``per_input``, a list of parameter sets, input i
+takes the (i mod its length)-th over the others. The
 caller sends the pool's inputs in turn, each once the previous call has
 returned, until the window's seconds have passed: a user who waits for
-each clustering before sending the next.
+each answer before sending the next.
 """
 from __future__ import annotations
 
@@ -32,10 +34,12 @@ def input_seed(seed: int, i: int) -> int:
 
 
 def make_pool(data: dict, pool: int, seed: int) -> list:
-    """``pool`` host arrays (float32) for ``seed``."""
+    """``pool`` host arrays for ``seed``, in the generator's own dtype."""
     gen = importlib.import_module(f"portbench.datasets.{data['kind']}")
-    return [np.ascontiguousarray(gen.make(data, input_seed(seed, i)),
-                                 np.float32) for i in range(pool)]
+    each = data.get("per_input") or [{}]
+    return [np.ascontiguousarray(gen.make({**data, **each[i % len(each)]},
+                                          input_seed(seed, i)))
+            for i in range(pool)]
 
 
 def closed_loop(call: Callable, inputs: list, seconds: float,

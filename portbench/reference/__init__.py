@@ -57,7 +57,7 @@ def _preference(cfg: dict, s_or_vals: torch.Tensor, x: torch.Tensor,
 def decisions(cfg: dict, points: np.ndarray, device, rnd=identity
               ) -> np.ndarray:
     """(L, N) canonical exemplars of a solve of ``points`` under ``cfg``
-    (``spec.Cell.reference_config``), worked out from the points alone;
+    (``programs.solve.reference_config``), worked out from the points alone;
     ``rnd`` rounds every step (``precision.tf32`` for the control)."""
     x = torch.from_numpy(np.ascontiguousarray(points, np.float32)).to(device)
     levels, sweeps, lam = cfg["levels"], cfg["sweeps"], cfg["damping"]

@@ -24,3 +24,19 @@ def tf32(t: torch.Tensor) -> torch.Tensor:
     lsb = (b >> _DROP) & 1
     r = ((b + _HALF + lsb) & _MASK).view(torch.float32)
     return torch.where(torch.isfinite(t), r, t)
+
+
+E4M3_MAX = 448.0
+
+
+def e4m3(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (float32) rounded to float8 e4m3 under one scale for the
+    whole tensor (its largest magnitude maps to e4m3's largest value,
+    448), round to nearest even, and scaled back: the rounding of a
+    per-tensor scaled fp8 matrix product's inputs."""
+    amax = t.abs().amax()
+    if not torch.isfinite(amax) or amax == 0:
+        return t
+    scale = amax / E4M3_MAX
+    q = (t / scale).clamp(-E4M3_MAX, E4M3_MAX).to(torch.float8_e4m3fn)
+    return q.to(torch.float32) * scale

@@ -3,16 +3,16 @@
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
-Set-up makes the cell's pool of inputs from the seed, moves them to the
-card as float32, and warms up with one ``solve()`` of the cell's own
-shape (the kernels load, or on a checkout's first run build, into
-``build/repro_torch_kernels/``). The window then calls
-``repro_torch.solver.solve`` on the pool's inputs in turn, back to back,
-for ``--seconds``; each call's time is the host clock around it, closed
-by ``torch.cuda.synchronize()``. With ``--trace 1`` the same window runs
-under ``torch.profiler`` with spans around the program's layers, and the
-result carries the per-layer metrics instead of the end-to-end ones.
-After the window the plain reference judges every call (``check.py``).
+The cell's configuration names its program (``portbench/programs/``,
+imported for this cell alone). Set-up is the program's: its pool of
+inputs from the seed, what it runs on, and a warm-up of the cell's own
+shapes. The window then makes the program's timed call on the pool's
+inputs in turn, back to back, for ``--seconds``; each call's time is the
+host clock around it, closed by ``torch.cuda.synchronize()``. With
+``--trace 1`` the same window runs under ``torch.profiler`` with spans
+around the program's layers, and the result carries the per-layer
+metrics instead of the end-to-end ones. After the window, once the peak
+memory is read, the program's plain reference judges the calls.
 
 The last line of standard output is the result as one JSON object; the
 compared numbers and their limits are also the last lines of standard
@@ -36,10 +36,9 @@ for p in (ROOT / "src", ROOT):
     if str(p) not in sys.path:
         sys.path.insert(0, str(p))
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from portbench import check, device, loadgen, spec, tracing  # noqa: E402
+from portbench import device, loadgen, programs, spec, tracing  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 GIB = float(2 ** 30)
@@ -52,94 +51,75 @@ def forbidden_modules() -> list:
                   .intersection(FORBIDDEN))
 
 
-def shapes(cell, x) -> dict:
-    return {"n": int(x.shape[0]), "d": int(x.shape[1]),
-            "k": cell.solve.get("k"), "levels": cell.solve["levels"],
-            "layout": cell.config["reference"]["layout"]}
-
-
 def run_cell(cell, seed: int, seconds: float, trace: bool, dev: str,
              t_start: float) -> dict:
     """Set-up, window and judgement of one run; -> the result's fields
     (without the device block's name)."""
-    from repro_torch.solver import solve
-
+    prog = programs.of(cell)
     on_card = dev == "cuda"
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
 
-    marks = [time.perf_counter()]
-    pool_np = loadgen.make_pool(cell.data, cell.mix["pool"], seed)
-    marks.append(time.perf_counter())
-    pool = [torch.from_numpy(x).to(dev) for x in pool_np]
-    sync()
-    marks.append(time.perf_counter())
-    overrides = {**cell.solve, "device": dev}
+    t0 = time.perf_counter()
+    run = prog.Run(cell, seed, dev, sync)
+    setup_s = time.perf_counter() - t_start
+    print("portbench: set-up {:.3f} s: imports {:.3f}, {}".format(
+        setup_s, t0 - t_start,
+        ", ".join(f"{label} {s:.3f}" for label, s in run.steps)),
+        file=sys.stderr)
 
-    def call(x):
-        return solve(x, **overrides)
-
-    call(pool[0])                       # warm-up: the cell's own shape
-    sync()
-    marks.append(time.perf_counter())
-    setup_s = marks[-1] - t_start
-    print("portbench: set-up {:.3f} s: imports {:.3f}, inputs {:.3f}, to the "
-          "device {:.3f}, warm-up solve {:.3f}".format(
-              setup_s, marks[0] - t_start, *(b - a for a, b in
-                                             zip(marks, marks[1:]))),
-          file=sys.stderr)
-
-    timed, prof, spans = call, None, None
+    timed, prof, spans = run.call, None, None
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     with contextlib.ExitStack() as stack:
         if trace:
-            spans = stack.enter_context(tracing.Spans(cell.config["spans"]))
-            prof = stack.enter_context(tracing.profile(dev))
+            spans = stack.enter_context(run.spans())
+            prof = stack.enter_context(tracing.profile(dev, prog.HOST_OPS))
 
             def timed(x):
-                with tracing.record_function(tracing.PREFIX + "solve"):
-                    return call(x)
+                with tracing.record_function(tracing.PREFIX + prog.CALL_SPAN):
+                    return run.call(x)
         with tracing.record_function(tracing.PREFIX + "window"):
-            calls, window_s = loadgen.closed_loop(timed, pool, seconds, sync)
+            calls, window_s = loadgen.closed_loop(timed, run.inputs,
+                                                  seconds, sync)
+        t0 = time.perf_counter()
     peak = torch.cuda.max_memory_allocated() if on_card else 0
+    print("portbench: window {:.3f} s, calls' seconds {}{}".format(
+        window_s, [round(c.seconds, 4) for c in calls],
+        f"; profile closed in {time.perf_counter() - t0:.1f} s" if trace
+        else ""), file=sys.stderr)
 
-    ok = [c for c in calls if c.error is None]
     out = {"attempted": len(calls), "peak": peak}
     if trace:
-        reading = tracing.read(
-            prof, calls=len(calls),
-            sweeps=sum(c.result.n_sweeps for c in ok),
-            shapes=shapes(cell, pool_np[0]),
-            missing=spans.missing)
+        t0 = time.perf_counter()
+        sweeps, shapes = run.counts(calls)
+        reading = tracing.read(prof, calls=len(calls), sweeps=sweeps,
+                               shapes=shapes, missing=spans.missing)
         out["metrics"] = per_layer(cell, reading)
+        print(f"portbench: trace read in {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr)
         out["busy_s"] = reading.busy_ns / 1e9
         out["window_s"] = reading.window_ns / 1e9
         out["breakdown"] = {"device_ops": reading.top_ops,
                             "idle_gaps": reading.idle_gaps}
     else:
-        times = [c.seconds for c in ok]
-        values = {
-            "solve_s": window_s / len(ok) if ok else None,
-            "solve_p90_s": float(np.percentile(times, 90)) if ok else None,
-            "peak_mem_gib": peak / GIB,
-            "setup_s": setup_s,
-        }
-        # the dense cells' own names for the same two readings, held to
-        # a bound of their own (their runs spread far less)
-        values["dense_solve_s"] = values["solve_s"]
-        values["dense_solve_p90_s"] = values["solve_p90_s"]
+        values = {**run.values(calls, window_s), "peak_mem_gib": peak / GIB,
+                  "setup_s": setup_s}
         out["metrics"] = {m["name"]: {"value": values[m["name"]],
                                       "unit": m["unit"]}
                           for m in cell.end_to_end
                           if values.get(m["name"]) is not None}
-    del pool, prof
+    del timed, prof
+    run.release()
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    out["judged"] = check.judge(cell, pool_np, calls, dev)
+    t0 = time.perf_counter()
+    out["judged"] = prog.judge(cell, run, calls, dev)
+    print(f"portbench: judged in {time.perf_counter() - t0:.3f} s",
+          file=sys.stderr)
     return out
 
 

@@ -1,7 +1,9 @@
 """``BENCHMARK.json`` and the files it names, resolved for one cell.
 
 A cell (``workloads`` entry) names a configuration and a traffic mix.
-The configuration's file is the one ``configs`` gives it; the mix is
+The configuration's file is the one ``configs`` gives it, and its
+``program`` key names the program that runs it
+(``portbench/programs/<program>.py``; absent, ``solve``). The mix is
 ``portbench/mixes/<traffic>.json``, the cell's own limits
 ``portbench/cells/<cell>.json``, and each per-layer metric's reader
 ``portbench/metrics/<metric>.py``. A mix may add to the configuration's
@@ -14,12 +16,13 @@ from pathlib import Path
 from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent.parent
-HERE = Path(__file__).resolve().parent
+DEFAULT_PROGRAM = "solve"
 
 
 class Cell(NamedTuple):
     name: str
     chips: int
+    program: str          # the configuration's program
     config: dict          # the configuration file, as is
     mix: dict             # the traffic mix file, as is
     limits: dict          # number -> limit, from the cell's file
@@ -28,15 +31,6 @@ class Cell(NamedTuple):
     end_to_end: list      # the cell's end-to-end metric entries
     per_layer: list       # the cell's per-layer metric entries
 
-    def reference_config(self) -> dict:
-        """What the plain reference needs: the stated solve settings and
-        the configuration's ``reference`` constants."""
-        s = self.solve
-        return {**self.config["reference"], "levels": s["levels"],
-                "sweeps": s["max_iterations"], "damping": s["damping"],
-                "preference": s["preference"], "k": s.get("k"),
-                "seed": s.get("seed", 0)}
-
 
 def _load(path: Path) -> dict:
     with open(path) as f:
@@ -44,7 +38,7 @@ def _load(path: Path) -> dict:
 
 
 def load_benchmark(root: Path = ROOT) -> dict:
-    return _load(root / "BENCHMARK.json")
+    return _load(Path(root) / "BENCHMARK.json")
 
 
 def _reports(metric: dict, cell: str) -> bool:
@@ -57,16 +51,19 @@ def find_cell(bench: dict, name: str, root: Path = ROOT) -> Cell:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json; have "
                        f"{sorted(by_name)}")
     w = by_name[name]
+    root = Path(root)
+    here = root / "portbench"
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
     config = _load(root / conf["file"])
-    mix = _load(HERE / "mixes" / f"{w['traffic']}.json")
-    limits = _load(HERE / "cells" / f"{name}.json")["limits"]
+    mix = _load(here / "mixes" / f"{w['traffic']}.json")
+    limits = _load(here / "cells" / f"{name}.json")["limits"]
     e2e = [m for m in bench["end_to_end"] if _reports(m, name)]
     e2e_names = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"]
                  if m["moves"] in e2e_names and _reports(m, name)]
-    return Cell(name=name, chips=w["chips"], config=config, mix=mix,
-                limits=limits,
+    return Cell(name=name, chips=w["chips"],
+                program=config.get("program", DEFAULT_PROGRAM),
+                config=config, mix=mix, limits=limits,
                 data={**config["data"], **mix.get("data", {})},
-                solve={**config["solve"], **mix.get("solve", {})},
+                solve={**config.get("solve", {}), **mix.get("solve", {})},
                 end_to_end=e2e, per_layer=per_layer)

@@ -24,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import _tiny, check, loadgen, reference, run, spec
+from portbench import _tiny, loadgen, reference, run, spec
+from portbench.programs import solve as solve_program
 from portbench.reference import precision
 
 #: one cell a configuration: a configuration's cells share every fault site
@@ -94,10 +95,10 @@ CONTROL_SIZES = {
 def test_the_control_is_not_correct(name):
     cell = spec.find_cell(spec.load_benchmark(), name)
     data, k = CONTROL_SIZES[name]
-    cfg = cell.reference_config()
+    cfg = solve_program.reference_config(cell)
     if k is not None:
         cfg["k"] = k
     x = loadgen.make_pool({**cell.data, **data}, 1, 77)[0]
     ref = reference.decisions(cfg, x, "cpu")
     ctl = reference.decisions(cfg, x, "cpu", precision.tf32)
-    assert check.gaps(ctl, ref)["mismatch"] > cell.limits["mismatch"]
+    assert solve_program.gaps(ctl, ref)["mismatch"] > cell.limits["mismatch"]

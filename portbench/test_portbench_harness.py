@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import _tiny, loadgen, roofline, run, spec
+from portbench import _tiny, loadgen, programs, roofline, run, spec
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -56,15 +56,16 @@ def test_benchmark_file_keeps_the_contract():
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_files_load_by_name(name):
     cell = spec.find_cell(BENCH, name)
-    assert cell.config["reduced"] == []
-    assert set(cell.limits) == {"mismatch"}
+    conf = {c["name"]: c for c in BENCH["configs"]}[cell.config["name"]]
+    assert cell.config["reduced"] == conf["reduced"]
+    assert set(cell.limits) == set(programs.of(cell).NUMBERS)
     assert any(m["name"] == "setup_s" for m in cell.end_to_end)
     assert len(cell.end_to_end) >= 2 and cell.per_layer
     for m in cell.per_layer:
         assert callable(importlib.import_module(
             f"portbench.metrics.{m['name']}").read)
     importlib.import_module(f"portbench.datasets.{cell.data['kind']}")
-    for targets in cell.config["spans"].values():
+    for targets in cell.config.get("spans", {}).values():
         for target in targets:
             mod, attr = target.split(":")
             assert hasattr(importlib.import_module(mod), attr), target
@@ -154,7 +155,8 @@ def test_nothing_of_jax_is_loaded_by_a_run_or_the_reference(tmp_path):
         " 'cpu', time.perf_counter()); "
         "print(json.dumps(run.forbidden_modules()))")
     ref_code = (
-        "import sys, json, portbench.reference, portbench.check; "
+        "import sys, json, portbench.reference, portbench.programs.solve, "
+        "portbench.reference.lm_dense, portbench.counts.lm_dense; "
         "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules} & "
         "{'jax', 'jaxlib', 'flax', 'repro', 'repro_torch'})))")
     for code in (run_code, ref_code):

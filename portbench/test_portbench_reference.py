@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from portbench import _tiny, loadgen, reference
+from portbench.programs import solve as solve_program
 from portbench.reference import precision
 from portbench.reference import similarity as rs
 
@@ -83,5 +84,6 @@ def test_decisions_equal_the_ports_solve(name):
     cell = _tiny.tiny_cell(name)
     x = loadgen.make_pool(cell.data, 1, 21)[0]
     res = solve(x, **{**cell.solve, "device": "cpu"})
-    ref = reference.decisions(cell.reference_config(), x, "cpu")
+    ref = reference.decisions(solve_program.reference_config(cell), x,
+                              "cpu")
     assert np.array_equal(res.exemplars, ref)

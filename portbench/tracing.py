@@ -113,7 +113,9 @@ def read(prof, calls: int, sweeps: int, shapes: dict,
     device = []                          # (start, end, name, corr, link)
     for e in events:
         name = e.name()
-        if e.device_type() != DeviceType.CPU:
+        if name.startswith("aten::"):    # most events: host ops, tested first
+            ops[e.correlation_id()] = (e.start_ns(), name)
+        elif e.device_type() != DeviceType.CPU:
             if name.startswith(PREFIX):      # the spans' device shadows
                 continue
             device.append((e.start_ns(), e.end_ns(), name,
@@ -177,6 +179,7 @@ def _idle_gaps(merged, win, layers, device, launched, ops) -> list:
     first_after = sorted((d[0], d) for d in device)
     firsts = [s for s, _ in first_after]
     flat = sorted((s, e, k) for k, v in layers.items() for s, e in v)
+    flat_starts = [s for s, _, _ in flat]
     by_label = defaultdict(int)
     edges = [(win[0], win[0])] + [tuple(m) for m in merged] + \
         [(win[1], win[1])]
@@ -185,11 +188,14 @@ def _idle_gaps(merged, win, layers, device, launched, ops) -> list:
             continue
         mid = (a + b) // 2
         where = "window"
-        for s, e, k in flat:
-            if s > mid:
+        # the span that started last among those around mid: later
+        # starts nest deeper
+        j = bisect.bisect_right(flat_starts, mid) - 1
+        while j >= 0:
+            if flat[j][1] > mid:
+                where = flat[j][2]
                 break
-            if e > mid:
-                where = k            # later starts nest deeper
+            j -= 1
         i = bisect.bisect_left(firsts, b)
         what = "end of window"
         if i < len(first_after):
@@ -202,9 +208,43 @@ def _idle_gaps(merged, win, layers, device, launched, ops) -> list:
     return [[label, ns / 1e9] for label, ns in top]
 
 
-def profile(device_type: str):
+def profile(device_type: str, host_ops: bool = True):
+    """A ``torch.profiler`` over the host and, on a card, the device.
+    With ``host_ops`` false the host records only the spans (user-scope
+    ``record_function``s) and the runtime calls that launch the kernels,
+    not every ``aten`` op: on a path that issues thousands of small ops
+    a step, recording each of them slows the host that paces the device."""
     from torch.profiler import ProfilerActivity, profile as _profile
     acts = [ProfilerActivity.CPU]
     if device_type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    return _profile(activities=acts)
+    prof = _profile(activities=acts)
+    return prof if host_ops else _SpansOnly(prof)
+
+
+class _SpansOnly:
+    """Starts ``prof`` with its host recording limited to user-scope
+    ``record_function``s, through the ``scopes`` argument of the
+    profiler's enable call (``torch.profiler`` does not expose it)."""
+
+    def __init__(self, prof):
+        self.prof = prof
+
+    def __enter__(self):
+        import torch.autograd.profiler as ap
+        from torch._C._profiler import RecordScope
+
+        enable = ap._enable_profiler
+
+        def spans_only(config, activities, *args, **kwargs):
+            return enable(config, activities, {RecordScope.USER_SCOPE})
+
+        ap._enable_profiler = spans_only
+        try:
+            self.prof.__enter__()
+        finally:
+            ap._enable_profiler = enable
+        return self.prof
+
+    def __exit__(self, *exc):
+        return self.prof.__exit__(*exc)
