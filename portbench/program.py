@@ -18,7 +18,7 @@ profiler records, and keeps counters that are always on
 module takes the window's profile from the frame that holds it while the
 readers run (``run.run_cell``'s), found by its type up the stack, and
 parses it once a reading. Device-side ranges named as spans are shadows
-of spans, not work, and are skipped, as ``tracing.read`` skips its own.
+of spans, not work, and are skipped, as ``tracing.read`` skips them.
 A run of a program that has no such spans or counters (a commit before
 them) finds nothing here, and its metrics are left out.
 
@@ -41,7 +41,7 @@ from torch.profiler import profile
 
 from portbench import tracing
 
-SPAN = "repro_torch."
+SPAN = tracing.PROGRAM_PREFIX
 OBS = "repro_torch.obs"
 SYNCS = frozenset({"cudaStreamSynchronize", "cudaDeviceSynchronize",
                    "cudaEventSynchronize", "cudaMemcpy"})
@@ -138,7 +138,7 @@ def parse(events) -> Optional[Program]:
             ops[e.correlation_id()] = (e.start_ns(), name)
             op_spans.append((e.start_ns(), e.end_ns(), name))
         elif e.device_type() != DeviceType.CPU:
-            if not name.startswith((SPAN, tracing.PREFIX)):
+            if not name.startswith(tracing.SPAN_PREFIXES):
                 device.append((e.start_ns(), e.end_ns(), name,
                                e.correlation_id(),
                                e.linked_correlation_id()))

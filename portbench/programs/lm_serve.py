@@ -1,22 +1,38 @@
 """The ``lm_serve`` program: ``repro_torch.serve.engine.ServeEngine``'s
 ``generate`` on static batches of prompts, greedy.
 
+The configuration's reference module
+(``portbench/reference/<reference.module>.py``) declares the architecture
+it computes, so that a configuration of another block comes as new files
+alone:
+
+- ``arch_fields(c)``: the port's ``ArchConfig`` fields that configuration
+  ``c`` sets (nested keys may map too);
+- ``layer_kinds(c)``: the port's block kind of each layer, at ``c``'s
+  depth;
+- ``BLOCK``: the other ``ArchConfig`` fields it computes as given (family,
+  norm, MLP, window);
+- ``SMOKE``: the CPU tests' cut of its configurations (``_tiny``);
+- ``make_weights(c, seed, device)`` and ``logits(w, c, tokens, start,
+  mm=)``: the weights, ``layers.<path>`` stacked over every layer or
+  ``layers_<kind>.<path>`` over the layers of one kind (``port_state``),
+  and the forward pass.
+
 Set-up builds the port's architecture that the configuration names
-(``architecture``, a key of the port's registry) with the configuration's
-sizes put in its place (``dataclasses.replace``), checks it against the
-block that the configuration's reference computes
-(``portbench/reference/<reference.module>.py``, ``BLOCK``), draws the
-weights from the seed on the card (the reference module's
-``make_weights``: one draw a stacked tensor, float32, the port's
-parameter type) and hands them to the port by name: the model is built on
-the ``meta`` device and takes those very tensors
-(``load_state_dict(assign=True)``), so the reference reads what the
-program reads and nothing the program made. Then the pool of prompts from
-the seed (input i takes the mix's i-th ``per_input`` batch and prompt
-length), an engine for each prompt length with its cache sized to the
-prompt and the new tokens, and one warm-up ``generate`` of each input's
-shape with two new tokens: every shape the window uses, since a decode
-step's shapes are the same from one step to the next.
+(``architecture``, a key of the port's registry) with the reference's
+fields put in its place (``dataclasses.replace``), checks its layers'
+kinds and ``BLOCK`` against the reference's, draws the weights from the
+seed on the card (``make_weights``: one draw a stacked tensor, float32,
+the port's parameter type) and hands them to the port by name: the model
+is built on the ``meta`` device and takes those very tensors, each
+parameter one (``load_state_dict(assign=True)``, strict), so the
+reference reads what the program reads and nothing the program made.
+Then the pool of prompts from the seed (input i takes the mix's i-th
+``per_input`` batch and prompt length), an engine for each prompt length
+with its cache sized to the prompt and the new tokens, and one warm-up
+``generate`` of each input's shape with two new tokens: every shape the
+window uses, since a decode step's shapes are the same from one step to
+the next.
 
 The window calls ``generate(prompt, steps=new)`` on the pool's prompts in
 turn. A wrapper on the engine's ``next_tokens`` (``RECORD``) copies each
@@ -26,7 +42,11 @@ input, without a synchronisation (4 rows of 152,064 logits, 2.4 MB a
 step); each buffer ends up holding its input's last call, and none of it
 lies in the card's memory. A traced window opens ``portbench.prefill``
 and ``portbench.decode`` spans around the engine's ``model_apply``
-(``MODE_SPANS``), by ``mode.kind``, and records no other host op.
+(``MODE_SPANS``), by ``mode.kind``, and records no other host op: its
+profile keeps user-scope ranges alone (``HOST_OPS``,
+``tracing.profile``), so a span of the port's on this path is read
+(``portbench/program.py``) where it is a ``record_function``, and not
+where it is a function-scope op such as ``repro_torch.obs.span``.
 
 The comparison that decides ``correct``, once the window has closed: for
 the sampled rows of each input's last call, the plain reference
@@ -73,13 +93,6 @@ ROWS = 4               # rows of each batch judged, half from each half
 #: rows (the pool's inputs are 0..)
 WEIGHTS = 2 ** 32
 JUDGED = 2 ** 32 + 1
-#: configuration key -> the port's ArchConfig field
-ARCH_FIELDS = {"hidden_size": "d_model", "num_hidden_layers": "n_layers",
-               "num_attention_heads": "n_heads",
-               "num_key_value_heads": "n_kv", "head_dim": "head_dim",
-               "intermediate_size": "d_ff", "vocab_size": "vocab",
-               "rope_theta": "rope_theta", "qkv_bias": "qkv_bias",
-               "tie_word_embeddings": "tied_embeddings"}
 PAD_TO = 128           # the port's embedding rows, padded with zeros
 BAD = 1e30             # what a NaN reads as
 
@@ -96,34 +109,64 @@ def arch(c: dict):
     from repro_torch.configs.registry import get_arch
 
     base = get_arch(c["architecture"])
-    block = reference_of(c).BLOCK
-    port = {k: getattr(base, k) for k in block}
-    if port != block or len(base.pattern) != 1:
-        raise ValueError(f"{base.name} is {port}, not the block the "
-                         f"reference computes, {block}")
-    new = {f: c[k] for k, f in ARCH_FIELDS.items()}
+    ref = reference_of(c)
+    new = ref.arch_fields(c)
+    cfg = dataclasses.replace(base, **new)
+    port = {k: getattr(cfg, k) for k in ref.BLOCK}
+    kinds = cfg.layer_kinds()
+    if port != ref.BLOCK or kinds != ref.layer_kinds(c):
+        raise ValueError(f"{base.name} is {port} with layers {kinds}, not "
+                         f"the block the reference computes, {ref.BLOCK} "
+                         f"with layers {ref.layer_kinds(c)}")
     changed = {f: (getattr(base, f), v) for f, v in new.items()
                if getattr(base, f) != v}
-    return dataclasses.replace(base, **new), changed
+    return cfg, changed
+
+
+def places(cfg) -> list:
+    """(where the port's model holds layer i, its kind), in the layers'
+    order, as ``models/lm.py`` lays them out: the pattern's units,
+    ``units.<slot>_<kind>.<unit>``, then the remainder,
+    ``rest.<slot>_<kind>``."""
+    from repro_torch.models.lm import _unit_layout
+
+    n_units, pat, rest = _unit_layout(cfg)
+    return ([(f"units.{j}_{kind}.{u}", kind) for u in range(n_units)
+             for j, kind in enumerate(pat)]
+            + [(f"rest.{j}_{kind}", kind) for j, kind in enumerate(rest)])
 
 
 def port_state(w: dict, cfg) -> dict:
     """The port's parameters by name, each one of the tensors of ``w``
     (a view; the embeddings padded to the port's row count): the
-    reference's ``layers.<path>``, stacked on a leading layer axis, is
-    layer i's ``units.0_<kind>.<i>.<path>`` in the port's model."""
-    unit = f"units.0_{cfg.pattern[0]}"
+    reference's ``layers.<path>``, stacked on a leading axis over every
+    layer, or ``layers_<kind>.<path>``, over the layers of that kind in
+    order, is layer i's ``<place>.<path>`` (``places``). Raises where a
+    stack does not hold one entry a layer, or two weights name one
+    parameter."""
+    where = places(cfg)
     out = {}
+
+    def put(name, t):
+        if name in out:
+            raise ValueError(f"two of the reference's weights are {name}")
+        out[name] = t
+
     for name, t in w.items():
-        if name.startswith("layers."):
-            path = name[len("layers."):]
-            for i in range(cfg.n_layers):
-                out[f"{unit}.{i}.{path}"] = t[i]
+        stack, _, path = name.partition(".")
+        if stack == "layers" or stack.startswith("layers_"):
+            kind = stack[len("layers_"):]
+            at = [p for p, k in where if kind in ("", k)]
+            if t.shape[0] != len(at):
+                raise ValueError(f"{name} stacks {t.shape[0]} layers, not "
+                                 f"the {len(at)} it is held by")
+            for p, layer in zip(at, t):
+                put(f"{p}.{path}", layer)
         elif name.endswith(".embedding") and t.shape[0] % PAD_TO:
-            out[name] = torch.nn.functional.pad(
-                t, (0, 0, 0, -t.shape[0] % PAD_TO))
+            put(name, torch.nn.functional.pad(
+                t, (0, 0, 0, -t.shape[0] % PAD_TO)))
         else:
-            out[name] = t
+            put(name, t)
     return out
 
 
@@ -270,8 +313,8 @@ class Run:
         return {"generate_s": window_s / len(ok)} if ok else {}
 
     def counts(self, calls: list) -> tuple[int, dict]:
-        sizes = {k: self.cell.config[k] for k in ARCH_FIELDS}
-        return 0, {"config": sizes, "counts": self.cell.config["counts"],
+        return 0, {"config": self.cell.config,
+                   "counts": self.cell.config["counts"],
                    "new": self.new,
                    "calls": [[int(n) for n in self.pool[c.input_index].shape]
                              for c in calls]}

@@ -34,9 +34,26 @@ from typing import Callable
 import torch
 
 #: the block this module computes, as the serving program checks it
-#: against the port's architecture
-BLOCK = {"family": "dense", "pattern": ("attn",), "norm": "rms",
-         "mlp": "swiglu", "window": None}
+#: against the port's architecture (its layers' kinds: ``layer_kinds``)
+BLOCK = {"family": "dense", "norm": "rms", "mlp": "swiglu", "window": None}
+#: configuration key -> the port's ArchConfig field (``arch_fields``)
+FIELDS = {"hidden_size": "d_model", "num_hidden_layers": "n_layers",
+          "num_attention_heads": "n_heads", "num_key_value_heads": "n_kv",
+          "head_dim": "head_dim", "intermediate_size": "d_ff",
+          "vocab_size": "vocab", "rope_theta": "rope_theta",
+          "qkv_bias": "qkv_bias", "tie_word_embeddings": "tied_embeddings"}
+#: the CPU tests' cut of a configuration of this block (``_tiny``): the
+#: port's CPU-smoke widths (``ArchConfig.reduced``) and two layers; two
+#: inputs (2 prompts of 16 tokens, 3 of 8) over a vocabulary of 256, and
+#: 4 new tokens
+SMOKE = {
+    "config": {"hidden_size": 64, "num_hidden_layers": 2,
+               "num_attention_heads": 4, "num_key_value_heads": 2,
+               "head_dim": 16, "intermediate_size": 128, "vocab_size": 256},
+    "data": {"vocab": 256,
+             "per_input": [{"batch": 2, "prompt_len": 16},
+                           {"batch": 3, "prompt_len": 8}]},
+    "mix": {"generate": {"steps": 4}}}
 #: the per-layer weights, each stacked on a leading layer axis under
 #: ``layers.<name>``; the names are the block's own parameter paths
 LAYER = ("attn.q.w", "attn.q.b", "attn.k.w", "attn.k.b", "attn.v.w",
@@ -45,6 +62,17 @@ LAYER = ("attn.q.w", "attn.q.b", "attn.k.w", "attn.k.b", "attn.v.w",
 EMBED_STD = 0.02       # embedding and head rows
 BIAS_STD = 0.1         # q, k, v biases
 NORM_STD = 0.1         # RMSNorm gains, about 1
+
+
+def arch_fields(c: dict) -> dict:
+    """The port's ArchConfig fields that configuration ``c`` sets."""
+    return {f: c[k] for k, f in FIELDS.items()}
+
+
+def layer_kinds(c: dict) -> list:
+    """The port's block kind of each layer, at the configuration's
+    depth."""
+    return ["attn"] * c["num_hidden_layers"]
 
 
 def sizes(c: dict) -> dict:

@@ -1,8 +1,12 @@
 """CPU tests of the harness's dispatch by configuration and of the LM
 serving program (``programs/lm_serve.py``): its cell's files, its runs
 and judge against the plain reference at CPU sizes (``_tiny``), the
-faults the judge has to catch, the fp8 control, the counts, and a second
-LM configuration that runs from files alone."""
+faults the judge has to catch, the fp8 control, the counts, the LM
+cell's architecture, state and counts' sizes pinned to what they were
+before the reference module declared them, configurations of other
+architectures that run from files alone (another family member, a
+pattern of two slots and a remainder, an MoE-shaped declaration), and
+the program's spans under the LM window's spans-only profile."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,6 +22,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
 
 from portbench import _tiny, device, loadgen, programs, run, spec
 from portbench.counts import lm_dense as counts
@@ -375,11 +380,12 @@ def test_counts_equal_the_hand_worked_values():
         127 * 8_580_297_728 + 8 * 32_768 * (268_097 + 127))
 
 
-def test_a_second_lm_configuration_runs_from_files_alone(tmp_path):
+def _toy_root(tmp_path, **over) -> spec.Cell:
     """A toy configuration of another family member (tinyllama-1.1b:
     tied embeddings, no q/k/v biases) in a root of its own: its
     configuration, mix and cell files and the BENCHMARK.json entries, and
-    no harness file edited."""
+    no harness file; ``over`` changes the configuration's keys. -> its
+    cell, ``toy-llama.toy``."""
     here = tmp_path / "portbench"
     for sub in ("configs", "mixes", "cells"):
         (here / sub).mkdir(parents=True)
@@ -392,7 +398,7 @@ def test_a_second_lm_configuration_runs_from_files_alone(tmp_path):
               "num_attention_heads": 4, "num_key_value_heads": 1,
               "head_dim": 8, "intermediate_size": 48, "vocab_size": 200,
               "qkv_bias": False, "tie_word_embeddings": True,
-              "reduced": ["hidden_size"]}
+              "reduced": ["hidden_size"], **over}
     config["data"] = {**config["data"], "vocab": 200}
     mix = {"why": "toy", "pool": 2, "data": {"batch": 3, "prompt_len": 9},
            "generate": {"steps": 3}}
@@ -413,14 +419,314 @@ def test_a_second_lm_configuration_runs_from_files_alone(tmp_path):
                           for m in BENCH["per_layer"]
                           if m["name"] in LM_METRICS]
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-
-    cell = spec.find_cell(spec.load_benchmark(tmp_path), "toy-llama.toy",
+    assert sorted(p.name for p in here.iterdir()) == ["cells", "configs",
+                                                      "mixes"]
+    return spec.find_cell(spec.load_benchmark(tmp_path), "toy-llama.toy",
                           root=tmp_path)
-    assert cell.program == "lm_serve" and cell.limits == limits
+
+
+def test_a_second_lm_configuration_runs_from_files_alone(tmp_path):
+    """A toy configuration of another family member, from its own files
+    and no harness file edited; its CPU cut is its reference's."""
+    cell = _toy_root(tmp_path)
+    assert cell.program == "lm_serve"
+    assert cell.limits == spec.find_cell(BENCH, LM).limits
     out = run.run_cell(cell, 2 ** 33 + 1, 0.0, False, "cpu",
                        time.perf_counter())
     assert out["judged"]["correct"] is True
     assert set(out["metrics"]) == {"generate_s", "peak_mem_gib", "setup_s"}
+    tiny = _tiny.tiny_cell("toy-llama.toy", root=tmp_path)
+    assert tiny.config == {**cell.config, **lm_dense.SMOKE["config"]}
+    assert tiny.mix["generate"] == {"steps": 4} and tiny.mix["pool"] == 2
+
+
+def test_a_two_slot_architecture_with_a_remainder_runs_from_files_alone(
+        tmp_path, monkeypatch):
+    """The registry's pattern of two slots over 3 layers: two units'
+    slots and one layer left over, each parameter of the port's model
+    one of the reference's weights, and the run ``correct``."""
+    from repro_torch.configs import registry
+
+    base = registry.get_arch("tinyllama-1.1b")
+    monkeypatch.setitem(registry.ARCHS, "toy-two-slot", dataclasses.replace(
+        base, name="toy-two-slot", pattern=("attn", "attn")))
+    cell = _toy_root(tmp_path, architecture="toy-two-slot")
+    cfg, _ = lm_serve.arch(cell.config)
+    assert lm_serve.places(cfg) == [("units.0_attn.0", "attn"),
+                                    ("units.1_attn.0", "attn"),
+                                    ("rest.0_attn", "attn")]
+    r = lm_serve.Run(cell, 2 ** 33 + 5, "cpu", lambda: None)
+    params = dict(next(iter(r.engines.values())).params.named_parameters())
+    state = lm_serve.port_state(r.weights, r.cfg)
+    assert set(params) == set(state)
+    assert {k.split(".attn.")[0] for k in params if ".attn.q.w" in k} == {
+        "units.0_attn.0", "units.1_attn.0", "rest.0_attn"}
+    # the embedding, padded from 200 rows to 256, is a copy each call
+    assert all(params[k].data_ptr() == v.data_ptr()
+               for k, v in state.items() if not k.endswith(".embedding"))
+    assert len({p.data_ptr() for p in params.values()}) == len(params)
+    r.release()
+    out = run.run_cell(cell, 2 ** 33 + 7, 0.0, False, "cpu",
+                       time.perf_counter())
+    assert out["judged"]["correct"] is True
+
+
+@pytest.mark.parametrize("stack", ["layers", "layers_attn"])
+def test_a_stack_places_each_layer_once(stack):
+    """A weight stacked over every layer, or over the layers of one kind,
+    lands on each of those layers' parameter once; a stack of another
+    length, or two weights on one parameter, is refused."""
+    cfg = dataclasses.replace(lm_serve.arch(_tiny.tiny_cell(LM).config)[0],
+                              n_layers=3, pattern=("attn", "attn"))
+    w = {f"{stack}.norm1.scale": torch.arange(3.0)[:, None].expand(3, 4)}
+    state = lm_serve.port_state(w, cfg)
+    assert {k: float(v[0]) for k, v in state.items()} == {
+        "units.0_attn.0.norm1.scale": 0.0,
+        "units.1_attn.0.norm1.scale": 1.0, "rest.0_attn.norm1.scale": 2.0}
+    with pytest.raises(ValueError, match="stacks 2 layers"):
+        lm_serve.port_state({f"{stack}.norm1.scale": torch.ones(2, 4)}, cfg)
+    with pytest.raises(ValueError, match="two of the reference's weights"):
+        lm_serve.port_state({**w, "layers_attn.norm1.scale": w[
+            f"{stack}.norm1.scale"], "layers.norm1.scale": w[
+            f"{stack}.norm1.scale"]}, cfg)
+    assert lm_serve.port_state({"layers_moe.norm1.scale":
+                                torch.ones(0, 4)}, cfg) == {}
+
+
+#: an MoE-shaped configuration, on the registry's mixtral-8x22b: 64
+#: published experts of which 8 are held on this chip
+MOE = {"architecture": "mixtral-8x22b", "reference": {"module": "toy_moe"},
+       "counts": "toy_moe", "hidden_size": 32, "num_hidden_layers": 3,
+       "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 8,
+       "vocab_size": 200, "num_experts": 64, "num_experts_held": 8,
+       "num_experts_per_tok": 4, "moe_intermediate_size": 24,
+       "sliding_window": 16, "rope_parameters": {"rope_theta": 5e5},
+       "tie_word_embeddings": False}
+
+
+def _toy_moe(monkeypatch, kinds: str = "moe"):
+    """A reference module and a counts module for ``MOE``, registered
+    under ``portbench.reference.toy_moe`` and ``portbench.counts.toy_moe``;
+    -> (the reference, the configurations the counts were handed)."""
+    fields = {"hidden_size": "d_model", "num_hidden_layers": "n_layers",
+              "num_attention_heads": "n_heads",
+              "num_key_value_heads": "n_kv", "head_dim": "head_dim",
+              "vocab_size": "vocab", "num_experts_held": "n_experts",
+              "num_experts_per_tok": "top_k",
+              "moe_intermediate_size": "d_ff", "sliding_window": "window",
+              "tie_word_embeddings": "tied_embeddings"}
+    ref = types.ModuleType("portbench.reference.toy_moe")
+    ref.BLOCK = {"family": "moe", "norm": "rms", "mlp": "swiglu",
+                 "capacity_factor": 1.25}
+    ref.arch_fields = lambda c: {
+        **{f: c[k] for k, f in fields.items()},
+        "rope_theta": c["rope_parameters"]["rope_theta"]}
+    ref.layer_kinds = lambda c: [kinds] * c["num_hidden_layers"]
+    seen = []
+    cnt = types.ModuleType("portbench.counts.toy_moe")
+    cnt.call_flops = lambda c, b, s, new: seen.append(c) or 1e12
+    monkeypatch.setitem(sys.modules, ref.__name__, ref)
+    monkeypatch.setitem(sys.modules, cnt.__name__, cnt)
+    return ref, seen
+
+
+def test_an_moe_declaration_sets_the_ports_fields_and_reaches_the_counts(
+        monkeypatch):
+    from portbench import tracing
+    from portbench.metrics import mfu_device_pct
+
+    ref, seen = _toy_moe(monkeypatch)
+    cfg, changed = lm_serve.arch(MOE)
+    assert (cfg.n_experts, cfg.top_k, cfg.d_ff, cfg.window,
+            cfg.rope_theta) == (8, 4, 24, 16, 5e5)
+    assert "n_experts" not in changed          # mixtral's 8, held here
+    assert changed["window"] == (4096, 16) and changed["top_k"] == (2, 4)
+    assert cfg.layer_kinds() == ["moe"] * 3
+
+    r = lm_serve.Run.__new__(lm_serve.Run)
+    r.cell, r.ref, r.new = types.SimpleNamespace(config=MOE), ref, 3
+    r.pool = [np.zeros((2, 5), dtype=np.int64)]
+    calls = [types.SimpleNamespace(input_index=0)] * 2
+    _, shapes = r.counts(calls)
+    assert shapes == {"config": MOE, "counts": "toy_moe", "new": 3,
+                      "calls": [[2, 5], [2, 5]]}
+    reading = tracing.Reading(
+        calls=2, sweeps=0, shapes=shapes, window_ns=10 ** 9,
+        busy_ns=10 ** 9, host_ns={}, solve_self_ns=0, device_by_layers={},
+        missing=set(), top_ops=[], idle_gaps=[])
+    assert mfu_device_pct.read(reading) > 0
+    assert seen == [MOE, MOE]
+
+
+@pytest.mark.parametrize("fault", ["layer_kinds", "block"])
+def test_an_architecture_other_than_the_references_is_refused(
+        fault, monkeypatch):
+    ref, _ = _toy_moe(monkeypatch, "attn" if fault == "layer_kinds"
+                      else "moe")
+    if fault == "block":
+        monkeypatch.setattr(ref, "BLOCK", {**ref.BLOCK, "family": "dense"})
+    with pytest.raises(ValueError, match="not the block the reference"):
+        lm_serve.arch(MOE)
+
+
+#: what the LM cell's configuration set in the port's ArchConfig, and
+#: handed to its counts, before the reference declared it
+PARENT_FIELDS = {"hidden_size": "d_model", "num_hidden_layers": "n_layers",
+                 "num_attention_heads": "n_heads",
+                 "num_key_value_heads": "n_kv", "head_dim": "head_dim",
+                 "intermediate_size": "d_ff", "vocab_size": "vocab",
+                 "rope_theta": "rope_theta", "qkv_bias": "qkv_bias",
+                 "tie_word_embeddings": "tied_embeddings"}
+
+
+def test_the_lm_cells_architecture_is_its_parents():
+    from repro_torch.configs.registry import get_arch
+
+    c = spec.find_cell(BENCH, LM).config
+    cfg, changed = lm_serve.arch(c)
+    assert cfg == dataclasses.replace(
+        get_arch("qwen2.5-32b"),
+        **{f: c[k] for k, f in PARENT_FIELDS.items()})
+    assert changed == {"n_layers": (64, 16), "head_dim": (0, 128),
+                       "rope_theta": (10000.0, 1e6)}
+
+
+def test_the_lm_cells_port_state_is_its_parents():
+    """At full size, on ``meta``: layer i's weights at
+    ``units.0_attn.<i>``, and the port's model takes each of them."""
+    from repro_torch.models import model_init
+
+    c = spec.find_cell(BENCH, LM).config
+    cfg, _ = lm_serve.arch(c)
+    w = {name: torch.empty(shape, device="meta")
+         for name, (shape, _, _) in lm_dense.layout(c).items()}
+    state = lm_serve.port_state(w, cfg)
+    assert set(state) == {
+        f"units.0_attn.{i}.{p}" for i in range(16) for p in lm_dense.LAYER
+    } | {"embed.embedding", "lm_head.embedding", "final_norm.scale"}
+    model, _ = model_init(None, cfg, device="meta")
+    assert {k: tuple(v.shape) for k, v in model.named_parameters()} == {
+        k: tuple(v.shape) for k, v in state.items()}
+    assert state["embed.embedding"].shape == (152064, 5120)
+
+
+def test_the_lm_cells_counts_are_handed_its_parents_sizes():
+    cell = spec.find_cell(BENCH, LM)
+    r = lm_serve.Run.__new__(lm_serve.Run)
+    r.cell, r.ref, r.new = cell, lm_dense, cell.mix["generate"]["steps"]
+    r.pool = loadgen.make_pool(cell.data, cell.mix["pool"], 2 ** 31 + 41)
+    calls = [types.SimpleNamespace(input_index=i) for i in (0, 1, 2, 3, 0)]
+    n, got = r.counts(calls)
+    parent = {k: cell.config[k] for k in PARENT_FIELDS}
+    assert n == 0 and got == {
+        "config": cell.config, "counts": "lm_dense", "new": 128,
+        "calls": [[32, 512], [16, 1024], [8, 2048], [4, 4096], [32, 512]]}
+    for f in (counts.call_flops, counts.decode_flops, counts.decode_bytes):
+        assert [f(got["config"], b, s, 128) for b, s in got["calls"]] == [
+            f(parent, b, s, 128) for b, s in got["calls"]]
+
+
+def test_the_lm_cells_cpu_cut_is_its_parents():
+    cell, tiny = spec.find_cell(BENCH, LM), _tiny.tiny_cell(LM)
+    assert tiny.config == {
+        **cell.config, "hidden_size": 64, "num_hidden_layers": 2,
+        "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 16,
+        "intermediate_size": 128, "vocab_size": 256}
+    assert tiny.data == {**cell.data, "vocab": 256, "per_input": [
+        {"batch": 2, "prompt_len": 16}, {"batch": 3, "prompt_len": 8}]}
+    assert tiny.mix == {**cell.mix, "pool": 2, "generate": {"steps": 4}}
+    assert tiny.solve == cell.solve and tiny.limits == cell.limits
+
+
+class _Event:
+    """One event of a profiler trace, as ``kineto_results.events()``
+    gives it."""
+
+    def __init__(self, name, start, end, device=False, corr=0, link=0):
+        self._v = (name, start, end, corr, link)
+        self._dev = DeviceType.CUDA if device else DeviceType.CPU
+
+    def name(self):
+        return self._v[0]
+
+    def start_ns(self):
+        return self._v[1]
+
+    def end_ns(self):
+        return self._v[2]
+
+    def device_type(self):
+        return self._dev
+
+    def correlation_id(self):
+        return self._v[3]
+
+    def linked_correlation_id(self):
+        return self._v[4]
+
+
+#: a spans-only window on a card: a user-scope program span inside
+#: ``generate`` launches one kernel, and one more is launched outside it;
+#: both user-scope spans draw a shadow range on the device's timeline
+SPANS_ONLY_TRACE = [
+    _Event("portbench.window", 0, 1000),
+    _Event("portbench.generate", 10, 990),
+    _Event("repro_torch.user", 100, 400),
+    _Event("cudaLaunchKernel", 150, 160, corr=7),
+    _Event("cudaLaunchKernel", 700, 710, corr=8),
+    _Event("gemm", 500, 600, device=True, corr=7),
+    _Event("copy", 800, 850, device=True, corr=8),
+    _Event("repro_torch.user", 500, 900, device=True),
+    _Event("portbench.generate", 480, 950, device=True),
+]
+
+
+def test_the_program_spans_shadows_on_the_device_are_not_work():
+    """A user-scope ``repro_torch.<name>`` span is read with the device
+    time of the kernels launched inside it; its shadow range on the
+    device's timeline is neither a device op nor busy time."""
+    from portbench import program, tracing
+
+    p = program.parse(SPANS_ONLY_TRACE)
+    assert p.host_ns == {"user": 300}
+    assert p.device_ns == {"user": 100} and p.device_ops == {"user": 1}
+    assert p.on_device
+    prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
+        kineto_results=types.SimpleNamespace(
+            events=lambda: SPANS_ONLY_TRACE)))
+    r = tracing.read(prof, calls=1, sweeps=0, shapes={}, missing=set())
+    assert r.busy_ns == 150
+    assert sorted(n for n, _ in r.top_ops) == ["copy", "gemm"]
+
+
+def test_a_user_scope_program_span_in_generate_is_read(monkeypatch):
+    """Under the LM window's spans-only profile a ``record_function``
+    named ``repro_torch.<name>``, opened inside ``generate``, is read by
+    ``program.of``; a function-scope span (``repro_torch.obs.span``) is
+    not recorded at all."""
+    from portbench import program
+    from repro_torch import obs
+    from repro_torch.serve import engine
+
+    assert lm_serve.HOST_OPS is False
+    orig = engine.model_apply
+
+    def apply(*args, **kwargs):
+        with torch.profiler.record_function(program.SPAN + "user"), \
+                obs.span("fast"):
+            return orig(*args, **kwargs)
+
+    got = []
+    monkeypatch.setattr(engine, "model_apply", apply)
+    monkeypatch.setattr(run, "per_layer",
+                        lambda cell, reading: got.append(
+                            program.of(reading)) or {})
+    out = run.run_cell(_tiny.tiny_cell(LM), 2 ** 31 + 43, 0.0, True, "cpu",
+                       time.perf_counter())
+    assert out["judged"]["correct"] is True
+    [p] = got
+    assert p is not None and set(p.host_ns) == {"user"}
+    assert p.host_ns["user"] > 0
 
 
 def test_a_run_that_loads_jax_exits_3_and_prints_no_result(monkeypatch,

@@ -26,6 +26,10 @@ from torch.autograd import DeviceType
 from torch.profiler import record_function
 
 PREFIX = "portbench."
+PROGRAM_PREFIX = "repro_torch."      # the program's spans (``program.py``)
+#: a span of either family that is a user-scope range has a shadow on the
+#: device's timeline, which is not work
+SPAN_PREFIXES = (PREFIX, PROGRAM_PREFIX)
 GAP_MIN_NS = 20_000       # idle gaps shorter than this are not labelled
 
 
@@ -116,7 +120,7 @@ def read(prof, calls: int, sweeps: int, shapes: dict,
         if name.startswith("aten::"):    # most events: host ops, tested first
             ops[e.correlation_id()] = (e.start_ns(), name)
         elif e.device_type() != DeviceType.CPU:
-            if name.startswith(PREFIX):      # the spans' device shadows
+            if name.startswith(SPAN_PREFIXES):   # the spans' shadows
                 continue
             device.append((e.start_ns(), e.end_ns(), name,
                            e.correlation_id(), e.linked_correlation_id()))
